@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card
+and check them.
 
 Run from the repository root, with no arguments:
 
@@ -22,8 +23,23 @@ Phases (any failure raises and the script exits non-zero):
  6. time each view and each kernel with CUDA events (warm-up, then the
     median of 10), beside the plain versions and the library yardstick;
  7. render a small scene on the card and on the CPU (plain versions) and
-    compare them (atol 3e-4 / rtol 1e-3, integer outputs exact);
- 8. print a ``{"kernels": [...]}`` line, then as the last line
+    compare them (atol 3e-4 / rtol 1e-3, integer outputs exact), then its
+    gradients with respect to every input (atol 2e-3 / rtol 5e-3);
+ 8. train: the same model with f_dc perturbed by N(0, 0.1), in a training
+    state of next_pow2(300,000) = 524,288 slots with the default
+    OptimizationConfig, fitted to the images served in phase 4: 8 train
+    steps over the four views (stats accumulated), a densify step (the
+    capacity grown first to cover every candidate), an opacity reset,
+    and 2 more steps at the capacities a probe then asks for. Loss, L1
+    and PSNR finite at every step; the second pass over the views has a
+    lower loss than the first; the launch counters, zeroed before and read
+    after, show the backward kernels once per step;
+ 9. on the front view's real cotangents, hold the backward kernels
+    against their plain versions (blend_bwd per row within 1e-3 of the
+    row's largest value plus 1e-3 of each value, and exactly 0 on chunks
+    past chunks_done; segsum within 1e-5 of the row's largest value), and
+    time the train step, its phases, its peak memory and the kernels;
+10. print a ``{"kernels": [...]}`` line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
@@ -49,6 +65,9 @@ MAX_LIVE = (1 << 20) + (1 << 18) + (1 << 17)
 FOV = math.radians(60.0)
 VIEWS = [(0.0, 0.0), (6.0, 0.0), (-5.0, 3.0), (3.0, -4.0)]  # (yaw, pitch) degrees
 REPS = 10
+EXTENT = 5.0  # scene extent (the cameras' distance): xyz lr scale and densify sizes
+TRAIN_STEPS = 8  # before the densify step
+CAP_QUANTUM = 1 << 16  # instance capacities after densify, rounded up to this
 
 # H100 SXM peaks: HBM 3.35 TB/s and fp32 67 TFLOP/s (NVIDIA data sheet);
 # special-function units 16 results/clock/SM (CUDA C++ Programming Guide,
@@ -61,6 +80,8 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 REPLACES = {
     "expand_seg": "gaussian_splatting_with_eye_tracking_tpu/ops/expand.py:74",
     "blend_fwd": "gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py:563",
+    "blend_bwd": "gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py:600",
+    "segsum": "gaussian_splatting_with_eye_tracking_tpu/ops/segsum.py:31",
 }
 
 
@@ -118,6 +139,261 @@ def cuda_ms(fn, reps=REPS, warmup=1):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+GRAD_NAMES = ("means", "scales", "quats", "opacities", "sh", "bg", "means2d_offset")
+
+
+def small_scene_grads(rast, scene, cam):
+    """Gradients of a fixed loss of the small scene's render with respect
+    to every differentiable input, on the scene's device."""
+    dev = scene[0].device
+    inputs = [a.clone().requires_grad_(True) for a in scene]
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev, requires_grad=True)
+    offset = torch.zeros((scene[0].shape[0], 2), device=dev, requires_grad=True)
+    out = rast.rasterize(*inputs, cam, bg, sh_degree=3, max_instances=1 << 15,
+                         means2d_offset=offset)
+    target = torch.linspace(0.0, 1.0, out.color.numel(), device=dev).reshape(out.color.shape)
+    loss = ((out.color - target) ** 2).mean() + 0.2 * out.final_t.mean()
+    return torch.autograd.grad(loss, inputs + [bg, offset])
+
+
+def fit_caps(state, cams, bg, caps):
+    """(max_instances, max_live) that hold every view of ``state``: the
+    given ones where they do, else rounded up from the largest need."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import renderer
+
+    need_enum = need_live = 0
+    with torch.no_grad():
+        for cam in cams:
+            out = renderer.render(cam.params(), state, bg, max_sh_degree=3,
+                                  max_instances=1 << 23, max_live=1 << 23)
+            need_enum = max(need_enum, int(out.num_enumerated))
+            need_live = max(need_live, int(out.num_instances))
+    return tuple(c if need <= c else -(-need * 5 // 4 // CAP_QUANTUM) * CAP_QUANTUM
+                 for need, c in ((need_enum, caps[0]), (need_live, caps[1])))
+
+
+def train_phase(params, cams, targets, bg):
+    """Phase 8: the training path on the 300k model. Returns the losses,
+    densify counts, the kernels' launches over the run, the capacities,
+    the state after the first 8 steps and its train step."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import backend, train_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
+
+    opt = OptimizationConfig()
+    tx = gm.make_optimizer(opt, EXTENT)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    noise = torch.randn(params.f_dc.shape, generator=gen, device="cuda")
+    start = params._replace(f_dc=params.f_dc + 0.1 * noise)
+    state = gm.init_training(start, 3, tx, capacity=gm.next_pow2(N))
+    if state.params.xyz.shape[0] != 524_288 or int(gm.num_active(state)) != N:
+        raise AssertionError("training state is not 300,000 active of 524,288 slots")
+    caps = (MAX_INSTANCES, MAX_LIVE)
+    step = train_lib.make_train_step(tx, opt, 3, W, H, *caps)
+    views = [train_lib.camera_arrays(c.params()) for c in cams]
+    losses, l1s, psnrs = [], [], []
+
+    def run(state, step, i):
+        v = i % len(cams)
+        state, aux = step(state, *views[v], targets[v], bg, True)
+        vals = [float(aux.loss), float(aux.l1), float(aux.psnr)]
+        if not all(math.isfinite(x) for x in vals):
+            raise AssertionError(f"step {i}: loss/L1/PSNR not finite: {vals}")
+        if bool(aux.overflow):
+            raise AssertionError(f"step {i}: instance capacity overflow at {caps}")
+        for acc, x in zip((losses, l1s, psnrs), vals):
+            acc.append(x)
+        log(f"train step {i}: view {v}, loss {vals[0]:.6f}, L1 {vals[1]:.6f}, "
+            f"PSNR {vals[2]:.3f}, instances {int(aux.num_instances)}")
+        return state
+
+    torch.cuda.synchronize()
+    for kern in backend.kernels():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        state = run(state, step, i)
+    state8 = state
+    n = len(cams)
+    first, second = sum(losses[:n]), sum(losses[TRAIN_STEPS - n:TRAIN_STEPS])
+    if not second < first:
+        raise AssertionError(f"loss did not fall: {losses}")
+    state = train_lib.grow_for_densify(state, opt)
+    state, info = train_lib.densify_step(state, gen, opt, EXTENT, 0.0)
+    densify = {k: int(v) for k, v in info.items()}
+    densify["capacity"] = state.params.xyz.shape[0]
+    log(f"densify: {densify}")
+    state = gm.reset_opacity(state)
+    caps = fit_caps(state, cams, bg, caps)
+    if caps != (MAX_INSTANCES, MAX_LIVE):
+        step = train_lib.make_train_step(tx, opt, 3, W, H, *caps)
+    for i in range(TRAIN_STEPS, TRAIN_STEPS + 2):
+        state = run(state, step, i)
+    torch.cuda.synchronize()
+    launches = {kern.name: kern.launches for kern in backend.kernels()}
+    log(f"trained {len(losses)} steps in {time.perf_counter() - t0:.1f} s "
+        f"(probe and densify included); launches {launches}; capacities {caps}")
+    for name in ("blend_bwd", "segsum"):
+        if launches[name] != len(losses):
+            raise AssertionError(f"{name} ran {launches[name]} times in {len(losses)} steps")
+    for name in ("expand_seg", "blend_fwd"):
+        if launches[name] < len(losses):
+            raise AssertionError(f"{name} ran {launches[name]} times in {len(losses)} steps")
+    if int(gm.num_active(state)) <= 0:
+        raise AssertionError("no active gaussian left")
+    return dict(losses=losses, l1=l1s, psnr=psnrs, densify=densify, launches=launches,
+                caps=list(caps), state8=state8,
+                step=train_lib.make_train_step(tx, opt, 3, W, H, MAX_INSTANCES, MAX_LIVE))
+
+
+def splat_inputs(state, cam):
+    """What the splat's forward computes for ``state`` at camera params
+    ``cam``: the sorted instances, the feature array and the forward
+    compositor's output."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import renderer
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning, blend, projection
+
+    p = state.params
+    with torch.no_grad():
+        sh = gm.get_sh(p) * renderer.sh_band_mask(3, 3, p.xyz.device)[None, None, :]
+        prep = projection.preprocess(p.xyz, gm.get_scaling(p), p.rotation, gm.get_opacity(p),
+                                     sh, 3, cam, active_mask=state.active)
+        si = binning.build_sorted_instances(
+            prep.means2d, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched,
+            prep.rect_min, prep.rect_max, prep.cull_thr, prep.depths, -(-W // 32),
+            -(-H // 32), MAX_INSTANCES, 32, max_live=MAX_LIVE)
+        feat = blend.feat_soa_from_rows(si.feat_rows, blend.CHUNK)
+        return si, feat, blend.blend_fwd(feat, si.binning.offsets, -(-W // 32), -(-H // 32))
+
+
+def backward_checks(state, cam, target, bg, step):
+    """Phase 9: the backward kernels against their plain versions on the
+    front view's real cotangents, their bounds, and the timings of the
+    train step (whole, by phase, peak memory) and of the kernels."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import train_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, segsum
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import ssim as ssim_ops
+
+    gx, gy = -(-W // 32), -(-H // 32)
+    cp = cam.params()
+    si, feat, fwd = splat_inputs(state, cp)
+    b = si.binning
+    tiles = fwd.clone().requires_grad_(True)
+    color, _ = blend.assemble_tiles(tiles, gx, gy, 32, bg)
+    color = color[:, :H, :W]
+    loss = 0.8 * ssim_ops.l1_loss(color, target) + 0.2 * (1.0 - ssim_ops.ssim(color, target))
+    (cot,) = torch.autograd.grad(loss, tiles)
+    cot = cot.contiguous()
+
+    with torch.no_grad():
+        k3 = blend.blend_bwd(feat, b.offsets, fwd, cot, gx, gy)
+        k3_work = {}
+        k3_plain = blend.blend_bwd_plain(feat, b.offsets, fwd, cot, gx, gy, work=k3_work)
+        torch.cuda.synchronize()
+        n_live = int(b.offsets[-1])
+        rowmax = k3_plain.abs().amax(dim=1, keepdim=True)
+        k3_err = (k3 - k3_plain).abs()
+        if (k3_err > 1e-3 * rowmax + 1e-3 * k3_plain.abs()).any():
+            raise AssertionError(f"blend_bwd disagrees with its plain version: per-row max "
+                                 f"|err| {k3_err.amax(dim=1).tolist()}")
+        # positions in chunks at or past chunks_done must be exactly zero
+        tile_of = b.tile_id[:n_live].to(torch.int64)
+        start = (b.offsets[:-1].to(torch.int64) // blend.CHUNK) * blend.CHUNK
+        chunk_of = (torch.arange(n_live, device=feat.device) - start[tile_of]) // blend.CHUNK
+        past = chunk_of >= fwd[:, 0, 4].to(torch.int64)[tile_of]
+        if k3[:, :n_live][:, past].any() or k3[:, n_live:].any():
+            raise AssertionError("blend_bwd wrote gradients past chunks_done")
+        log(f"blend_bwd vs plain: per-row max |err| "
+            f"{[f'{e:.3g}' for e in k3_err.amax(dim=1).tolist()]} of row max "
+            f"{[f'{m:.3g}' for m in rowmax[:, 0].tolist()]}; {int(past.sum())} instances "
+            f"past chunks_done are 0")
+
+        table, bounds = blend.id_order_table(k3, si.id_pos, b.gauss_start, b.gauss_count,
+                                             MAX_INSTANCES)
+        k4 = segsum.segment_sum_bounds(table, bounds)
+        k4_plain = segsum.segment_sum_bounds_plain(table, bounds)
+        lengths = (bounds[1:] - bounds[:-1]).to(torch.int64)
+        b0, b1 = int(bounds[0]), int(bounds[-1])
+        data = table[:, b0:b1].T.contiguous()
+        k4_lib = torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
+        torch.cuda.synchronize()
+        k4_err = (k4 - k4_plain).abs()
+        k4_rowmax = k4_plain.abs().amax(dim=1, keepdim=True)
+        if (k4_err > 1e-5 * k4_rowmax).any():
+            raise AssertionError(f"segsum disagrees with its plain version: per-row max "
+                                 f"|err| {k4_err.amax(dim=1).tolist()}")
+        lib_err = float((k4_lib.T - k4_plain).abs().max())
+        log(f"segsum vs plain: max |err| {float(k4_err.max()):.3g} (row max up to "
+            f"{float(k4_rowmax.max()):.3g}); torch.segment_reduce vs plain {lib_err:.3g}; "
+            f"{lengths.numel()} segments over {b1 - b0} columns")
+
+        k3_ms = cuda_ms(lambda: blend.blend_bwd(feat, b.offsets, fwd, cot, gx, gy))
+        k3_plain_ms = cuda_ms(lambda: blend.blend_bwd_plain(feat, b.offsets, fwd, cot, gx, gy))
+        k4_ms = cuda_ms(lambda: segsum.segment_sum_bounds(table, bounds))
+        k4_plain_ms = cuda_ms(lambda: segsum.segment_sum_bounds_plain(table, bounds))
+        k4_lib_ms = cuda_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths, axis=0))
+
+    # bounds from the work this run's front view needs. K3, over the chunks
+    # before chunks_done: per (pixel, in-range instance) pair the forward's
+    # 10 flops; where power <= 0 an exp and 2 flops; per pair that passes
+    # the gate a log, an exp and a reciprocal, and 34 flops (clamp, 1-a,
+    # log-T step, weight, 3 weighted cotangents, G, d_power, S, the 9
+    # moment sums); a log of opacity per staged instance. Bytes: 9 feature
+    # rows of the live instances, the forward output and the cotangent
+    # read, 9 gradient rows written.
+    lanes, exp_lanes, kept = k3_work["lanes"], k3_work["exp_lanes"], k3_work["kept"]
+    k3_sfu = exp_lanes + 3 * kept + lanes // 1024
+    k3_flops = 10 * lanes + 2 * exp_lanes + 34 * kept
+    k3_bytes = 4 * (9 * n_live + b.offsets.numel() + fwd.numel() + cot.numel() + 9 * n_live)
+    k3_times = {"operations": max(k3_sfu / SFU_OPS_PER_S, k3_flops / FP32_FLOPS_PER_S),
+                "bytes": k3_bytes / HBM_BYTES_PER_S}
+    k3_by = max(k3_times, key=k3_times.get)
+    # K4: the columns inside the segments read once (9 rows), the bounds
+    # read, the (9, N) sums written; one add per value read
+    k4_bytes = 4 * (table.shape[0] * (b1 - b0) + bounds.numel() + k4.numel())
+    k4_bound = k4_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"blend_bwd: pairs in range {lanes}, power <= 0 {exp_lanes}, kept {kept}; "
+        f"{k3_sfu} transcendentals {k3_sfu / SFU_OPS_PER_S * 1e3:.4f} ms, {k3_flops} fp32 "
+        f"flops {k3_flops / FP32_FLOPS_PER_S * 1e3:.4f} ms, {k3_bytes / 1e6:.1f} MB "
+        f"{k3_times['bytes'] * 1e3:.4f} ms")
+    log(f"segsum: {k4_bytes / 1e6:.1f} MB moved, bound {k4_bound:.4f} ms (bytes)")
+
+    # the train step on the 300k model (front view): whole, by phase, memory
+    args = (*train_lib.camera_arrays(cp), target, bg, True)
+    step_ms = cuda_ms(lambda: step(state, *args))
+    phases = {k: [] for k in ("forward", "loss", "backward", "optimizer")}
+    for _ in range(REPS):
+        t0 = torch.cuda.Event(enable_timing=True)
+        events = []
+        t0.record()
+        step(state, *args, events=events)
+        events[-1][1].synchronize()
+        prev = t0
+        for name, ev in events:
+            phases[name].append(prev.elapsed_time(ev))
+            prev = ev
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    step(state, *args)
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    split = {k: statistics.median(v) for k, v in phases.items()}
+    log(f"train step (front view, 524,288 slots): {step_ms:.3f} ms median of {REPS}; "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+        + f"; peak {peak_mib:.0f} MiB ({base_mib:.0f} MiB held before the step)")
+    return {
+        "blend_bwd": {"max_abs_err": float(k3_err.max()), "ms": k3_ms,
+                      "plain_ms": k3_plain_ms, "bound_ms": k3_times[k3_by] * 1e3,
+                      "bound_by": k3_by, "library_ms": None},
+        "segsum": {"max_abs_err": float(k4_err.max()), "ms": k4_ms, "plain_ms": k4_plain_ms,
+                   "bound_ms": k4_bound, "bound_by": "bytes", "library_ms": k4_lib_ms},
+        "step": {"ms": step_ms, "split_ms": split, "peak_mib": peak_mib,
+                 "held_mib": base_mib},
+    }
 
 
 def main() -> int:
@@ -197,10 +473,11 @@ def main() -> int:
     launches = {kern.name: kern.launches for kern in backend.kernels()}
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     log(f"served {len(cams)} requests; launches {launches}; peak memory {peak_mb:.0f} MiB")
-    for kern in backend.kernels():
-        if launches[kern.name] < len(cams):
-            raise AssertionError(f"{kern.name} ran {launches[kern.name]} times for "
-                                 f"{len(cams)} requests")
+    for name in ("expand_seg", "blend_fwd"):
+        if launches[name] < len(cams):
+            raise AssertionError(f"{name} ran {launches[name]} times for {len(cams)} requests")
+    if launches["blend_bwd"] or launches["segsum"]:
+        raise AssertionError("serving launched a backward kernel")
     for img in images:
         if img.shape != (3, H, W) or not torch.isfinite(img).all():
             raise AssertionError(f"bad image: shape {tuple(img.shape)}")
@@ -318,6 +595,20 @@ def main() -> int:
     small_err = float((g.color.cpu() - c.color).abs().max())
     log(f"small scene 128x96, 2000 gaussians: card vs CPU max |err| {small_err:.3g}, "
         f"{int(g.num_instances)} instances on both")
+    grads = {d: small_scene_grads(rast, [a.to(d) for a in small], small_cam.params(device=d))
+             for d in ("cuda", "cpu")}
+    grad_errs = {}
+    for name, a, b in zip(GRAD_NAMES, grads["cuda"], grads["cpu"]):
+        if not (torch.allclose(a.cpu(), b, atol=2e-3, rtol=5e-3) and b.abs().max() > 0):
+            raise AssertionError(f"small scene: d{name} differs between card and CPU")
+        grad_errs[name] = float((a.cpu() - b).abs().max())
+    log("small scene gradients card vs CPU max |err|: "
+        + ", ".join(f"{k} {v:.3g}" for k, v in grad_errs.items()))
+
+    # -- 8. training ------------------------------------------------------
+    train = train_phase(params, cams, images, bg)
+    # -- 9. backward kernels vs plain versions, timings -----------------------
+    bwd = backward_checks(train["state8"], cams[0], images[0], bg, train["step"])
 
     src = "gaussian_splatting_with_eye_tracking_tpu_torch/csrc/{}.cu"
     kernels = [
@@ -330,8 +621,17 @@ def main() -> int:
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_times[k2_bound_by] * 1e3, "bound_by": k2_bound_by,
          "library_ms": None},
+        {"name": "blend_bwd", "route": "cuda", "source": src.format("blend_bwd"),
+         "replaces": REPLACES["blend_bwd"], "launches": train["launches"]["blend_bwd"],
+         **bwd["blend_bwd"]},
+        {"name": "segsum", "route": "cuda", "source": src.format("segsum"),
+         "replaces": REPLACES["segsum"], "launches": train["launches"]["segsum"],
+         **bwd["segsum"]},
     ]
     log(json.dumps({"views_ms": view_ms, "peak_mib": peak_mb, "card": smi}))
+    log(json.dumps({"train": {k: train[k] for k in ("losses", "l1", "psnr", "densify",
+                                                     "launches", "caps")},
+                    "step": bwd["step"], "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

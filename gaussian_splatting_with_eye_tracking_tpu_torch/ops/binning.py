@@ -12,7 +12,9 @@ Port of ``Binning``, ``SortedInstances``, ``_tile_ellipse_kept`` and
   3. decode each slot's tile, cull it with the exact ellipse-vs-tile test,
      and sort the slots once on a packed int64 (tile, depth rank) key; the
      10 feature rows follow the sort permutation and form the blend
-     kernel's SoA input.
+     kernel's SoA input;
+  4. for the backward, each sorted instance's position in gaussian-id
+     order (``id_pos``), from the same permutation.
 
 Kept instances have unique keys, so ``gauss_id[:num_instances]`` and the
 feature rows there are exactly the JAX package's; dead slots tie and may
@@ -46,6 +48,10 @@ class SortedInstances(NamedTuple):
     # (10, max_live) f32 depth-sorted instance rows in the blend kernel's
     # SoA order: [x, y, conic_a, conic_b, conic_c, r, g, b, opacity, gauss_id]
     feat_rows: torch.Tensor
+    # (max_live,) int64 position of each sorted instance in gaussian-id
+    # order (gaussian g's instances fill [gauss_start[g], gauss_start[g] +
+    # gauss_count[g])); max_instances past the live instances
+    id_pos: torch.Tensor
 
 
 def _tile_ellipse_kept(tx, ty, cx, cy, ca, cb, cc, thr, tile_px):
@@ -192,6 +198,11 @@ def build_sorted_instances(
     kc_end = kc[torch.clamp_max(total, max_instances)]
     live_count = torch.cat([live_start[1:], kc_end[None]]) - live_start
 
+    # kept slots are in gaussian-id order, so sorted instance i (pre-sort
+    # slot perm[i]) sits at the count of kept slots before it
+    id_pos = torch.where(torch.arange(max_live, device=dev) < offsets[-1], kc[perm],
+                         torch.full_like(perm, max_instances))
+
     b = Binning(
         gauss_id=gauss_sorted,
         tile_id=tile_sorted,
@@ -202,4 +213,4 @@ def build_sorted_instances(
         gauss_start=live_start.to(torch.int32),
         gauss_count=live_count.to(torch.int32),
     )
-    return SortedInstances(binning=b, feat_rows=feat_rows)
+    return SortedInstances(binning=b, feat_rows=feat_rows, id_pos=id_pos)

@@ -1,14 +1,17 @@
-"""Per-tile alpha compositing, forward (kernel K2), and image assembly.
+"""Per-tile alpha compositing, forward (kernel K2) and backward (kernel
+K3), the differentiable splat around them, and image assembly.
 
-Port of the forward side of
-``gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py``: the
-constants, ``_feat_soa_from_rows``, the forward tile compositor
-``_fwd_kernel`` (variant stride=1, n_rounds=0, step=1), ``_assemble_tiles``
-and ``render_tiles_pallas`` / ``_blend_fwd``. On a CUDA tensor
-``blend_fwd`` launches ``csrc/blend_fwd.cu``; on a CPU tensor it runs
-``blend_fwd_plain``.
+Port of ``gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py``:
+the constants, ``_feat_soa_from_rows``, the forward tile compositor
+``_fwd_kernel`` (variant stride=1, n_rounds=0, step=1), the backward tile
+compositor ``_bwd_kernel``, ``splat_pallas`` with ``_blend_fwd`` /
+``_blend_bwd`` / ``_segment_reduce_grads`` (as the autograd Function
+``Splat``), ``_assemble_tiles`` and ``render_tiles_pallas``. On CUDA
+tensors ``blend_fwd`` and ``blend_bwd`` launch ``csrc/blend_fwd.cu`` and
+``csrc/blend_bwd.cu``; on CPU tensors they run ``blend_fwd_plain`` and
+``blend_bwd_plain``.
 
-Semantics shared by both versions (and the TPU kernel):
+Semantics shared by both versions (and the TPU kernels):
 
 - tile t composites its depth-sorted CSR range [o, o+n) of the (16, K')
   SoA feature array in chunks aligned to GLOBAL multiples of ``chunk``:
@@ -19,11 +22,17 @@ Semantics shared by both versions (and the TPU kernel):
 - transmittance in log space: w = alpha * exp(logT + exclusive prefix of
   log(1-alpha)), logT += the chunk's sum;
 - after each whole chunk the TILE exits once max(logT) < ln 1e-4;
-- output (T, P, 8) per pixel: rgb (no background), exp(logT),
-  chunks_done, logT, 0, 0.
+- forward output (T, P, 8) per pixel: rgb (no background), exp(logT),
+  chunks_done, logT, 0, 0;
+- backward: chunks replayed back to front from the forward's logT (never
+  by division by final_T), the suffix accumulator seeded with
+  dL/dT_final * final_T, zero gradient on chunks at or past chunks_done,
+  d_power gated by keep & alpha_raw < 0.99, d_opacity = sum d_power / op;
+  gradients of instance i are written at its sorted position i.
 
-The TPU kernel's MXU scans, bf16 limb splits and TUNE knobs were TPU
-workarounds and are not ported.
+The TPU kernels' MXU scans and moment matmuls, bf16 limb splits, private
+per-tile gradient regions and TUNE knobs were TPU workarounds and are not
+ported.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import torch
 
 from gaussian_splatting_with_eye_tracking_tpu_torch import backend
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning as binning_ops
+from gaussian_splatting_with_eye_tracking_tpu_torch.ops import segsum
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
@@ -43,6 +53,7 @@ LOG_T_MIN = math.log(1e-4)  # the tile exits once every pixel's T < 1e-4
 FEAT = 16  # SoA rows (10 used)
 GID_ROW = 9  # feature row carrying the gaussian id (exact in f32 < 2^24)
 OUTC = 8  # output columns per pixel: r, g, b, final_T, chunks_done, logT, 0, 0
+NGRAD = 9  # per-instance gradient rows: x, y, conic a, b, c, r, g, b, opacity
 
 TILE = 32  # the port's tile and chunk sizes; the CUDA kernel is built for them
 CHUNK = 128
@@ -53,9 +64,17 @@ BLEND_FWD = backend.CudaKernel(
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
 )
 
-# tiles composited together by the plain version (bounds its (B, P, chunk)
-# temporaries to ~134 MB each at P = 1024, chunk = 128)
+BLEND_BWD = backend.CudaKernel(
+    "blend_bwd", "blend_bwd", "blend_bwd_launch",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_void_p],
+)
+
+# tiles composited together by the plain versions (bounds their (B, P,
+# chunk) temporaries to ~134 MB / ~34 MB each at P = 1024, chunk = 128)
 _PLAIN_TILE_BATCH = 256
+_PLAIN_BWD_TILE_BATCH = 64
 
 
 def feat_soa_from_rows(feat_rows: torch.Tensor, chunk: int) -> torch.Tensor:
@@ -76,6 +95,42 @@ def _chunk_ranges(offsets: torch.Tensor, chunk: int):
     return o, n, start, n_chunks
 
 
+def _tile_pixels(t: torch.Tensor, grid_x: int, tile: int):
+    """(B, tile*tile) float32 pixel coordinates of tiles ``t``, row-major
+    within each tile."""
+    pix = torch.arange(tile * tile, device=t.device)
+    px = ((t % grid_x) * tile)[:, None] + (pix % tile)[None, :]
+    py = ((t // grid_x) * tile)[:, None] + (pix // tile)[None, :]
+    return px.to(torch.float32), py.to(torch.float32)
+
+
+def _alpha_terms(f, valid, px, py):
+    """Feature rows f (9, B, C) of a chunk, lane mask (B, C) and pixel
+    coordinates (B, P) -> dx, dy, power, alpha_raw, keep and the gated,
+    clamped alpha, each (B, P, C)."""
+    logop = torch.where(valid, torch.log(f[8]), torch.full_like(f[8], -math.inf))
+    hca, ncb, hcc = -0.5 * f[2], -f[3], -0.5 * f[4]
+    dx = f[0][:, None, :] - px[:, :, None]
+    dy = f[1][:, None, :] - py[:, :, None]
+    power = (hca[:, None, :] * dx + ncb[:, None, :] * dy) * dx \
+        + (hcc[:, None, :] * dy) * dy
+    alpha_raw = torch.exp(power + logop[:, None, :])
+    keep = (power <= 0.0) & (alpha_raw >= ALPHA_MIN)
+    alpha = torch.where(keep, torch.clamp_max(alpha_raw, ALPHA_MAX),
+                        torch.zeros_like(alpha_raw))
+    return dx, dy, power, alpha_raw, keep, alpha
+
+
+def _count_work(work: dict, valid, power, keep, pixels: int):
+    """Add a chunk's (pixel, in-range instance) pairs ("lanes"), those with
+    power <= 0 ("exp_lanes") and those that pass the alpha gate ("kept")."""
+    exp_lanes = valid[:, None, :] & (power <= 0.0)
+    for key, n_pairs in (("lanes", int(valid.sum()) * pixels),
+                         ("exp_lanes", int(exp_lanes.sum())),
+                         ("kept", int(keep.sum()))):
+        work[key] = work.get(key, 0) + n_pairs
+
+
 def blend_fwd_plain(feat_soa: torch.Tensor, offsets: torch.Tensor,
                     grid_x: int, grid_y: int, tile: int = TILE,
                     chunk: int = CHUNK, work: dict | None = None) -> torch.Tensor:
@@ -94,14 +149,11 @@ def blend_fwd_plain(feat_soa: torch.Tensor, offsets: torch.Tensor,
     kp = feat_soa.shape[1]
     out = torch.zeros((num_tiles, pixels, OUTC), dtype=torch.float32, device=dev)
     o_all, n_all, start_all, nch_all = _chunk_ranges(offsets, chunk)
-    pix = torch.arange(pixels, device=dev)
     lane = torch.arange(chunk, device=dev)
     for b0 in range(0, num_tiles, _PLAIN_TILE_BATCH):
         t = torch.arange(b0, min(b0 + _PLAIN_TILE_BATCH, num_tiles), device=dev)
         o, n, start, nch = o_all[t], n_all[t], start_all[t], nch_all[t]
-        px = ((t % grid_x) * tile)[:, None] + (pix % tile)[None, :]
-        py = ((t // grid_x) * tile)[:, None] + (pix // tile)[None, :]
-        px, py = px.to(torch.float32), py.to(torch.float32)
+        px, py = _tile_pixels(t, grid_x, tile)
         nb = t.shape[0]
         log_t = torch.zeros((nb, pixels), dtype=torch.float32, device=dev)
         rgb = torch.zeros((nb, pixels, 3), dtype=torch.float32, device=dev)
@@ -114,23 +166,9 @@ def blend_fwd_plain(feat_soa: torch.Tensor, offsets: torch.Tensor,
             ids = start[:, None] + ci * chunk + lane[None, :]  # (B, C)
             f = feat_soa[:9, ids.clamp_max(kp - 1)]  # (9, B, C)
             valid = run[:, None] & (ids >= o[:, None]) & (ids < (o + n)[:, None])
-            logop = torch.where(valid, torch.log(f[8]),
-                                torch.full_like(f[8], -math.inf))
-            hca, ncb, hcc = -0.5 * f[2], -f[3], -0.5 * f[4]
-            dx = f[0][:, None, :] - px[:, :, None]  # (B, P, C)
-            dy = f[1][:, None, :] - py[:, :, None]
-            power = (hca[:, None, :] * dx + ncb[:, None, :] * dy) * dx \
-                + (hcc[:, None, :] * dy) * dy
-            alpha_raw = torch.exp(power + logop[:, None, :])
-            keep = (power <= 0.0) & (alpha_raw >= ALPHA_MIN)
+            _, _, power, alpha_raw, keep, alpha = _alpha_terms(f, valid, px, py)
             if work is not None:
-                exp_lanes = valid[:, None, :] & (power <= 0.0)
-                for key, n_pairs in (("lanes", int(valid.sum()) * pixels),
-                                     ("exp_lanes", int(exp_lanes.sum())),
-                                     ("kept", int(keep.sum()))):
-                    work[key] = work.get(key, 0) + n_pairs
-            alpha = torch.where(keep, torch.clamp_max(alpha_raw, ALPHA_MAX),
-                                torch.zeros_like(alpha_raw))
+                _count_work(work, valid, power, keep, pixels)
             lom = torch.log(1.0 - alpha)
             csum = torch.cumsum(lom, dim=-1)
             excl = torch.nn.functional.pad(csum[..., :-1], (1, 0))
@@ -169,6 +207,170 @@ def blend_fwd(feat_soa: torch.Tensor, offsets: torch.Tensor, grid_x: int,
     return out
 
 
+def _suffix_incl(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive suffix sums along the last axis."""
+    return torch.flip(torch.cumsum(torch.flip(x, [-1]), dim=-1), [-1])
+
+
+def blend_bwd_plain(feat_soa: torch.Tensor, offsets: torch.Tensor,
+                    fwd_out: torch.Tensor, cot: torch.Tensor, grid_x: int,
+                    grid_y: int, tile: int = TILE, chunk: int = CHUNK,
+                    work: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch backward compositor, vectorized over batches of tiles
+    and looping over the chunk index from the back. ``fwd_out`` is the
+    forward's (T, P, OUTC) output, ``cot`` its cotangent (cols 0-2
+    dL/dcolor without the background, col 3 dL/dfinal_T). Returns
+    (NGRAD, K') float32: at each tile's sorted positions [o, o+n) the
+    instance's dL/d[x, y, conic a, b, c, r, g, b, opacity], zero on chunks
+    at or past ``chunks_done`` and outside every range.
+
+    If ``work`` is a dict, the work the backward runs is added to it as
+    ``blend_fwd_plain`` counts it, over the chunks before chunks_done."""
+    dev = feat_soa.device
+    num_tiles = grid_x * grid_y
+    pixels = tile * tile
+    kp = feat_soa.shape[1]
+    dfeat = torch.zeros((NGRAD, kp), dtype=torch.float32, device=dev)
+    o_all, n_all, start_all, nch_all = _chunk_ranges(offsets, chunk)
+    done_all = torch.minimum(fwd_out[:, 0, 4].to(torch.int64), nch_all)
+    lane = torch.arange(chunk, device=dev)
+    for b0 in range(0, num_tiles, _PLAIN_BWD_TILE_BATCH):
+        t = torch.arange(b0, min(b0 + _PLAIN_BWD_TILE_BATCH, num_tiles), device=dev)
+        o, n, start, done = o_all[t], n_all[t], start_all[t], done_all[t]
+        px, py = _tile_pixels(t, grid_x, tile)
+        cur = fwd_out[t, :, 5]  # logT after the last chunk run, (B, P)
+        s_acc = cot[t, :, 3] * fwd_out[t, :, 3]  # dL/dT_final * final_T
+        g = cot[t, :, 0:3]  # (B, P, 3)
+        for ci in range(int(done.max()) - 1, -1, -1):
+            ids = start[:, None] + ci * chunk + lane[None, :]  # (B, C)
+            f = feat_soa[:9, ids.clamp_max(kp - 1)]  # (9, B, C)
+            valid = (ci < done)[:, None] & (ids >= o[:, None]) & (ids < (o + n)[:, None])
+            dx, dy, power, alpha_raw, keep, alpha = _alpha_terms(f, valid, px, py)
+            if work is not None:
+                _count_work(work, valid, power, keep, pixels)
+            om = 1.0 - alpha
+            rsum = _suffix_incl(torch.log(om))  # sum over j >= i of log(1 - alpha_j)
+            w = alpha * torch.exp(cur[..., None] - rsum)
+            u = w * torch.bmm(g, f[5:8].permute(1, 0, 2))  # w * (dL/dcolor . rgb)
+            s_i = s_acc[..., None] + (_suffix_incl(u) - u)
+            dpow = torch.where(keep & (alpha_raw < ALPHA_MAX), u - alpha / om * s_i,
+                               torch.zeros_like(u))
+            e = [(dpow * m).sum(dim=1) for m in (dx, dy, dx * dx, dx * dy, dy * dy)]
+            wrgb = torch.bmm(g.transpose(1, 2), w)  # (B, 3, C)
+            a, b, c = f[2], f[3], f[4]
+            grads = torch.stack([
+                -(a * e[0] + b * e[1]), -(c * e[1] + b * e[0]),
+                -0.5 * e[2], -e[3], -0.5 * e[4],
+                wrgb[:, 0], wrgb[:, 1], wrgb[:, 2],
+                dpow.sum(dim=1) / torch.clamp_min(f[8], 1e-30),
+            ])  # (NGRAD, B, C)
+            dfeat[:, ids[valid]] = grads[:, valid]
+            s_acc = s_acc + u.sum(dim=-1)
+            cur = cur - rsum[..., 0]
+    return dfeat
+
+
+def blend_bwd(feat_soa: torch.Tensor, offsets: torch.Tensor, fwd_out: torch.Tensor,
+              cot: torch.Tensor, grid_x: int, grid_y: int) -> torch.Tensor:
+    """Backward tile compositor on TILE x TILE tiles and CHUNK-wide chunks:
+    feat_soa and offsets as ``blend_fwd`` takes them, ``fwd_out`` its
+    output and ``cot`` that output's cotangent, both (T, TILE*TILE, OUTC)
+    float32. Returns (NGRAD, K') per-instance gradients at sorted
+    positions; see ``blend_bwd_plain``."""
+    if feat_soa.device.type == "cpu":
+        return blend_bwd_plain(feat_soa, offsets, fwd_out, cot, grid_x, grid_y)
+    for name, x, dtype in (("feat_soa", feat_soa, torch.float32),
+                           ("offsets", offsets, torch.int32),
+                           ("fwd_out", fwd_out, torch.float32),
+                           ("cot", cot, torch.float32)):
+        backend.check_cuda_tensor(name, x, dtype)
+    num_tiles = grid_x * grid_y
+    if feat_soa.shape[0] != FEAT or feat_soa.shape[1] % CHUNK:
+        raise ValueError(f"feat_soa shape {tuple(feat_soa.shape)} is not "
+                         f"({FEAT}, multiple of {CHUNK})")
+    if offsets.shape != (num_tiles + 1,):
+        raise ValueError(f"offsets shape {tuple(offsets.shape)} != ({num_tiles + 1},)")
+    for name, x in (("fwd_out", fwd_out), ("cot", cot)):
+        if x.shape != (num_tiles, TILE * TILE, OUTC):
+            raise ValueError(f"{name} shape {tuple(x.shape)} != "
+                             f"({num_tiles}, {TILE * TILE}, {OUTC})")
+    dfeat = torch.zeros((NGRAD, feat_soa.shape[1]), dtype=torch.float32,
+                        device=feat_soa.device)
+    if num_tiles > 0:
+        BLEND_BWD(feat_soa.data_ptr(), feat_soa.shape[1], offsets.data_ptr(),
+                  num_tiles, grid_x, fwd_out.data_ptr(), cot.data_ptr(),
+                  dfeat.data_ptr(), backend.stream_ptr(feat_soa))
+    return dfeat
+
+
+def segment_reduce_grads(dfeat: torch.Tensor, id_pos: torch.Tensor,
+                         gauss_start: torch.Tensor, gauss_count: torch.Tensor,
+                         max_instances: int) -> torch.Tensor:
+    """Per-gaussian sums (NGRAD, N) of the per-instance gradients.
+
+    Port of ``_segment_reduce_grads``. The JAX function sorts the gradient
+    columns by their gaussian-id tag; here sorted instance i moves to its
+    id-order position ``id_pos[i]`` (``binning.SortedInstances``), a
+    permutation with no sort, and K4 sums gaussian g's run
+    [gauss_start[g], gauss_start[g] + gauss_count[g]). Slots past the live
+    instances go to a trash column past every bound. Where no instance
+    was dropped for ``max_live`` these are JAX's bounds
+    ``min(gauss_start ‖ last, n_live)``; where some were, the dropped
+    positions hold zeros, so each gaussian still sums exactly its own
+    rendered instances."""
+    return segsum.segment_sum_bounds(*id_order_table(
+        dfeat, id_pos, gauss_start, gauss_count, max_instances))
+
+
+def id_order_table(dfeat, id_pos, gauss_start, gauss_count, max_instances):
+    """The segment sum's inputs: the per-instance gradients moved to
+    gaussian-id order, (NGRAD, max_instances + 1) with the trash column
+    last, and the (N+1,) int32 bounds gauss_start ‖ last."""
+    table = dfeat.new_zeros((dfeat.shape[0], max_instances + 1))
+    table[:, id_pos] = dfeat[:, :id_pos.shape[0]]
+    if gauss_start.numel():
+        last = gauss_start[-1:] + gauss_count[-1:]
+    else:
+        last = gauss_start.new_zeros(1)
+    return table, torch.cat([gauss_start, last]).to(torch.int32)
+
+
+class Splat(torch.autograd.Function):
+    """Differentiable binning + tile compositing: the ``splat_pallas``
+    contract. Forward: ``build_sorted_instances`` (K1) and K2; returns
+    (tiles (T, P, OUTC), num_instances, num_enumerated, overflow).
+    Backward: K3, the permutation into gaussian-id order, K4; returns
+    d xy, d conic, d rgb, d opacity per gaussian (nothing for the binning
+    inputs tiles_touched, rect_min, rect_max, cull_thr and depths)."""
+
+    @staticmethod
+    def forward(ctx, xy, conics, rgb, opacities, tiles_touched, rect_min, rect_max,
+                cull_thr, depths, grid_x, grid_y, max_instances, max_live):
+        si = binning_ops.build_sorted_instances(
+            xy, conics, rgb, opacities, tiles_touched, rect_min, rect_max,
+            cull_thr, depths, grid_x, grid_y, max_instances, tile_px=TILE,
+            max_live=max_live,
+        )
+        b = si.binning
+        feat_soa = feat_soa_from_rows(si.feat_rows, CHUNK)
+        tiles = blend_fwd(feat_soa, b.offsets, grid_x, grid_y)
+        ctx.save_for_backward(feat_soa, b.offsets, tiles, b.gauss_start,
+                              b.gauss_count, si.id_pos)
+        ctx.grid = (grid_x, grid_y)
+        ctx.max_instances = max_instances
+        ctx.mark_non_differentiable(b.num_instances, b.num_enumerated, b.overflow)
+        return tiles, b.num_instances, b.num_enumerated, b.overflow
+
+    @staticmethod
+    def backward(ctx, g_tiles, *_):
+        feat_soa, offsets, tiles, gauss_start, gauss_count, id_pos = ctx.saved_tensors
+        dfeat = blend_bwd(feat_soa, offsets, tiles, g_tiles.contiguous(), *ctx.grid)
+        seg = segment_reduce_grads(dfeat, id_pos, gauss_start, gauss_count,
+                                   ctx.max_instances)
+        return (seg[0:2].T, seg[2:5].T, seg[5:8].T, seg[8],
+                None, None, None, None, None, None, None, None, None)
+
+
 def assemble_tiles(tiles, grid_x, grid_y, tile, bg):
     """(T, P, OUTC) tiles -> color (3, H', W') with the background added
     through final_T, and final_t (H', W'), H' = grid_y*tile. Port of
@@ -184,18 +386,14 @@ def assemble_tiles(tiles, grid_x, grid_y, tile, bg):
 
 
 def render_tiles(prep, xy, grid_x, grid_y, bg, max_instances, max_live):
-    """Full-image renderer from a Preprocessed bundle (``xy`` passed
-    separately, as in the JAX package) on TILE x TILE tiles. Returns
-    (color, final_t, aux) with
-    aux = (num_instances, num_enumerated, overflow). Port of
-    ``render_tiles_pallas`` with the forward of ``_blend_fwd``."""
-    si = binning_ops.build_sorted_instances(
+    """Full-image differentiable renderer from a Preprocessed bundle (``xy``
+    passed separately, as in the JAX package, so that a screen-space
+    offset can ride on it) on TILE x TILE tiles. Returns (color, final_t,
+    aux) with aux = (num_instances, num_enumerated, overflow). Port of
+    ``render_tiles_pallas``."""
+    tiles, num_instances, num_enumerated, overflow = Splat.apply(
         xy, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched,
         prep.rect_min, prep.rect_max, prep.cull_thr, prep.depths,
-        grid_x, grid_y, max_instances, tile_px=TILE, max_live=max_live,
-    )
-    b = si.binning
-    feat_soa = feat_soa_from_rows(si.feat_rows, CHUNK)
-    tiles = blend_fwd(feat_soa, b.offsets, grid_x, grid_y)
+        grid_x, grid_y, max_instances, max_live)
     color, final_t = assemble_tiles(tiles, grid_x, grid_y, TILE, bg)
-    return color, final_t, (b.num_instances, b.num_enumerated, b.overflow)
+    return color, final_t, (num_instances, num_enumerated, overflow)

@@ -4,8 +4,14 @@ tile rects.
 Port of ``gaussian_splatting_with_eye_tracking_tpu/ops/projection.py``:
 ``CameraParams``, ``Preprocessed`` and the forward of
 ``_preprocess_autodiff`` (which is also the forward of the JAX
-``preprocess``'s hand-VJP path). The hand-derived VJP comes with training.
-Vectorized over all N gaussians; no kernel (elementwise column math).
+``preprocess``'s hand-VJP path). Vectorized over all N gaussians; no
+kernel (elementwise column math). Its gradient is torch autograd through
+this forward, which the JAX package cross-checks its hand VJP against
+(``projection.py:219-231`` there). The binning-only quantities carry no
+gradient, as in JAX: ``cull_thr`` and the opacity-aware extents are
+detached (JAX ``stop_gradient``), so the radius chain, whose
+``sqrt(clamp(..., 0))`` would turn a zero cotangent into 0 * inf, is never
+differentiated.
 """
 
 from __future__ import annotations
@@ -117,11 +123,11 @@ def preprocess(
     # the ellipse d^T conic d <= 2 ln(255 op); its per-axis half-widths,
     # capped at the 3-sigma radius, give the tile rect
     ln_op = torch.log(torch.clamp_min(255.0 * opacities, 1.0))
-    cull_thr = ln_op
+    cull_thr = ln_op.detach()
     ext_x = torch.ceil(torch.sqrt(torch.clamp_min(2.0 * a * ln_op, 1e-12)))
     ext_y = torch.ceil(torch.sqrt(torch.clamp_min(2.0 * c * ln_op, 1e-12)))
-    ext_x = torch.minimum(ext_x, radius)
-    ext_y = torch.minimum(ext_y, radius)
+    ext_x = torch.minimum(ext_x, radius).detach()
+    ext_y = torch.minimum(ext_y, radius).detach()
 
     # tile rect; the int casts truncate toward zero, as in the JAX package
     rect_min_x = _to_int32((mean_x - ext_x) / tile).clamp(0, grid_x)

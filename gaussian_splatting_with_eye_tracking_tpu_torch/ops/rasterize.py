@@ -1,17 +1,17 @@
-"""Public rasterization API (forward).
+"""Public differentiable rasterization API.
 
 Port of ``RenderOut``, ``rasterize`` (its ``impl="pallas"`` branch) and
 ``mark_visible`` from ``gaussian_splatting_with_eye_tracking_tpu/ops/
-rasterize.py``: preprocess (ops/projection.py) -> binning with the expand
-kernel (ops/binning.py) -> the tile compositor (ops/blend.py) -> image
-assembly and crop. There is one implementation: the kernels on CUDA
-tensors, their plain PyTorch versions on CPU tensors.
+rasterize.py``: preprocess (ops/projection.py) -> the differentiable splat
+(ops/blend.Splat: binning with the expand kernel, the tile compositor
+forward, and in the backward the backward compositor and the segment sum)
+-> image assembly and crop. There is one implementation: the kernels on
+CUDA tensors, their plain PyTorch versions on CPU tensors.
 
-This slice is forward-only: with grad mode on, inputs that require grad
-raise ``NotImplementedError`` (the backward kernels are not ported yet, and
-a gradient that silently skips them would be wrong). The JAX function's
-``means2d_offset`` (a handle for the screen-space gradient) and ``debug``
-snapshot come with training.
+The reference's ``screenspace_points`` handle for the screen-space
+gradient (the densification statistic) is an explicit ``means2d_offset``
+input, as in JAX: pass zeros of shape (N, 2) with ``requires_grad`` and
+read their gradient.
 """
 
 from __future__ import annotations
@@ -58,36 +58,61 @@ def rasterize(
     max_instances: int = 1 << 19,
     max_live: int | None = None,
     active_mask: Optional[torch.Tensor] = None,
+    means2d_offset: Optional[torch.Tensor] = None,
     scale_modifier: float = 1.0,
+    debug: bool = False,
 ) -> RenderOut:
-    """3DGS rasterization, activated parameters in, image out.
+    """Differentiable 3DGS rasterization, activated parameters in, image
+    out.
 
     means3d (N,3); scales (N,3) post-exp; quats (N,4) unnormalized ok;
-    opacities (N,) post-sigmoid; sh (N, 3, (sh_degree+1)^2); bg (3,). All
-    tensors on one device, which decides where the work runs. Tiles are
-    ``blend.TILE`` pixels square on every device."""
-    tensors = [means3d, scales, quats, opacities, sh, bg, cam.viewmatrix,
-               cam.projmatrix, cam.campos]
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "rasterize is forward-only in this port: the backward kernels "
-            "are not ported yet (run under torch.no_grad() to render)")
-    devices = {t.device for t in tensors}
-    if active_mask is not None:
-        devices.add(active_mask.device)
+    opacities (N,) post-sigmoid; sh (N, 3, (sh_degree+1)^2); bg (3,);
+    ``means2d_offset`` (N, 2) is added to the screen-space centers before
+    the splat. All tensors on one device, which decides where the work
+    runs. Tiles are ``blend.TILE`` pixels square on every device.
+
+    ``debug=True`` saves every input to ``snapshot_fw.pt`` (``torch.save``)
+    on an exception before re-raising, as the JAX function does with
+    ``snapshot_fw.npz``."""
+    args = dict(means3d=means3d, scales=scales, quats=quats, opacities=opacities,
+                sh=sh, means2d_offset=means2d_offset, bg=bg, active_mask=active_mask,
+                viewmatrix=cam.viewmatrix, projmatrix=cam.projmatrix,
+                campos=cam.campos)
+    devices = {t.device for t in args.values() if t is not None}
     if len(devices) != 1:
         raise ValueError(f"rasterize: inputs on several devices {devices}")
+    try:
+        return _rasterize(
+            means3d, scales, quats, opacities, sh, cam, bg, sh_degree=sh_degree,
+            max_instances=max_instances,
+            max_live=max_instances if max_live is None else max_live,
+            active_mask=active_mask, means2d_offset=means2d_offset,
+            scale_modifier=scale_modifier)
+    except Exception:
+        if not debug:
+            raise
+        snapshot = {k: v.detach().cpu() for k, v in args.items() if v is not None}
+        snapshot.update(tan_fovx=cam.tan_fovx, tan_fovy=cam.tan_fovy,
+                        width=cam.width, height=cam.height,
+                        scale_modifier=scale_modifier)
+        torch.save(snapshot, "snapshot_fw.pt")
+        print("\nAn error occurred in rasterization: inputs dumped to "
+              "snapshot_fw.pt for forensics. Re-raising.")
+        raise
 
+
+def _rasterize(means3d, scales, quats, opacities, sh, cam, bg, *, sh_degree,
+               max_instances, max_live, active_mask, means2d_offset,
+               scale_modifier) -> RenderOut:
     prep = preprocess(
         means3d, scales, quats, opacities, sh, sh_degree, cam,
         tile=blend.TILE, active_mask=active_mask, scale_modifier=scale_modifier,
     )
+    means2d = prep.means2d if means2d_offset is None else prep.means2d + means2d_offset
     grid_x = -(-cam.width // blend.TILE)
     grid_y = -(-cam.height // blend.TILE)
     color, final_t, aux = blend.render_tiles(
-        prep, prep.means2d, grid_x, grid_y, bg, max_instances,
-        max_live if max_live is not None else max_instances,
-    )
+        prep, means2d, grid_x, grid_y, bg, max_instances, max_live)
     num_instances, num_enumerated, overflow = aux
     return RenderOut(
         color=color[:, :cam.height, :cam.width],

@@ -3,7 +3,8 @@
 Port of ``sh_band_mask`` and ``render`` from
 ``gaussian_splatting_with_eye_tracking_tpu/renderer/__init__.py``: apply the
 model activations, mask the SH bands above the state's active degree, and
-call the rasterizer.
+call the rasterizer (differentiable; ``means2d_offset`` is the handle for
+the screen-space gradient).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ def render(
     *,
     max_sh_degree: int = 3,
     scale_modifier: float = 1.0,
+    means2d_offset: Optional[torch.Tensor] = None,
     max_instances: int = 1 << 20,
     max_live: Optional[int] = None,
 ) -> rast.RenderOut:
@@ -50,5 +52,6 @@ def render(
         max_instances=max_instances,
         max_live=max_live,
         active_mask=state.active,
+        means2d_offset=means2d_offset,
         scale_modifier=scale_modifier,
     )

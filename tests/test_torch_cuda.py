@@ -4,18 +4,22 @@ imports no JAX, so it also runs on a CUDA machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-expand is held bit-exact on every slot; the compositor to atol 1e-4 on
-rgb/final_T (fp32 sums in another order, exp/log to a few ulp) with
-``chunks_done`` equal; the whole render on the card against the same
-render on the CPU to atol 3e-4 / rtol 1e-3 with the integer outputs
-exact."""
+expand is held bit-exact on every slot; the forward compositor to atol
+1e-4 on rgb/final_T (fp32 sums in another order, exp/log to a few ulp)
+with ``chunks_done`` equal; the backward compositor per gradient row to
+1e-4 of the row's largest value plus 1e-3 of each value, and exactly 0
+past ``chunks_done``; the segment sum to 1e-5 of each row's largest
+value; the whole render, its gradients and a train step on the card
+against the same on the CPU (forward atol 3e-4 / rtol 1e-3 with the
+integer outputs exact; gradients atol 2e-3 / rtol 5e-3, the tolerance of
+tests/test_pallas_blend.py's gradient tests)."""
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke as cs
-from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning, blend, expand
+from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning, blend, expand, segsum
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import rasterize as trast
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import transforms as tf
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops.projection import preprocess
@@ -81,7 +85,8 @@ def test_blend_kernel_matches_plain(dev):
     assert not got[..., 6:].any()
 
 
-def test_blend_kernel_saturated_tile_exits_early(dev):
+def _saturated_tile(dev):
+    """One tile under an opaque wall of 1195 instances (range [5, 1200))."""
     n = 1200
     rng = np.random.default_rng(2)
     feat = np.zeros((16, 1280), np.float32)
@@ -89,12 +94,91 @@ def test_blend_kernel_saturated_tile_exits_early(dev):
     feat[2, :n], feat[4, :n] = 0.01, 0.01
     feat[5:8, :n] = rng.uniform(size=(3, n))
     feat[8, :n] = 0.95
-    offsets = torch.tensor([5, n], dtype=torch.int32, device=dev)
-    f = to_torch(feat).to(dev)
+    return to_torch(feat).to(dev), torch.tensor([5, n], dtype=torch.int32, device=dev)
+
+
+def test_blend_kernel_saturated_tile_exits_early(dev):
+    f, offsets = _saturated_tile(dev)
     got = blend.blend_fwd(f, offsets, 1, 1)
     want = blend.blend_fwd_plain(f, offsets, 1, 1)
     assert torch.equal(got[..., 4], want[..., 4]) and 0 < float(got[0, 0, 4]) < 10
     assert torch.allclose(got[..., 0:4], want[..., 0:4], atol=1e-4, rtol=0)
+
+
+def _cotangent(fwd, seed):
+    """A random (T, P, 8) cotangent: dL/dcolor and dL/dfinal_T."""
+    g = torch.zeros_like(fwd)
+    gen = torch.Generator().manual_seed(seed)
+    g[..., 0:4] = torch.randn(fwd.shape[:2] + (4,), generator=gen).to(fwd.device)
+    return g
+
+
+def assert_rows_close(got, want, rel_max=1e-4, rtol=1e-3):
+    """Per row: |got - want| <= rel_max * max|want| + rtol * |want|."""
+    bound = rel_max * want.abs().amax(dim=1, keepdim=True) + rtol * want.abs()
+    bad = (got - want).abs() > bound
+    assert not bad.any(), f"{int(bad.sum())} values off; rows {bad.any(dim=1).tolist()}"
+
+
+def test_blend_bwd_kernel_matches_plain(dev):
+    feat, offsets, gx, gy = _scene_features(dev)
+    fwd = blend.blend_fwd(feat, offsets, gx, gy)
+    cot = _cotangent(fwd, 0)
+    got = blend.blend_bwd(feat, offsets, fwd, cot, gx, gy)
+    want = blend.blend_bwd_plain(feat, offsets, fwd, cot, gx, gy)
+    torch.cuda.synchronize()
+    n_live = int(offsets[-1])
+    assert got.shape == (blend.NGRAD, feat.shape[1]) and not got[:, n_live:].any()
+    assert_rows_close(got, want)
+    assert (want[:, :n_live] != 0).any(dim=1).all()
+
+
+def test_blend_bwd_kernel_saturated_tile(dev):
+    f, offsets = _saturated_tile(dev)
+    fwd = blend.blend_fwd(f, offsets, 1, 1)
+    cot = _cotangent(fwd, 1)
+    got = blend.blend_bwd(f, offsets, fwd, cot, 1, 1)
+    want = blend.blend_bwd_plain(f, offsets, fwd, cot, 1, 1)
+    done = int(fwd[0, 0, 4])
+    assert 0 < done < 10
+    assert not got[:, done * blend.CHUNK:].any()  # chunks past chunks_done
+    assert got[:, 5:done * blend.CHUNK].any(dim=1).all()
+    assert_rows_close(got, want)
+
+
+@pytest.mark.parametrize("n", [1000, 300_001])
+def test_segsum_kernel_matches_plain(dev, n):
+    """Segment lengths as the backward gives them (a few columns each, a
+    fifth empty), one long segment, and empty segments at S."""
+    rng = np.random.default_rng(n)
+    lengths = rng.integers(0, 10, n) * (rng.uniform(size=n) > 0.2)
+    lengths[n // 2] = 3000
+    lengths[-5:] = 0
+    bounds = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    s = int(bounds[-1])
+    table = to_torch(rng.normal(size=(9, s)).astype(np.float32)).to(dev)
+    b = to_torch(bounds).to(dev)
+    got = segsum.segment_sum_bounds(table, b)
+    want = segsum.segment_sum_bounds_plain(table, b)
+    torch.cuda.synchronize()
+    assert got.shape == (9, n)
+    assert not got[:, torch.from_numpy(lengths == 0).to(dev)].any()
+    assert_rows_close(got, want, rel_max=1e-5, rtol=0)
+
+
+def test_kernels_refuse_bad_inputs(dev):
+    feat, offsets, gx, gy = _scene_features(dev, n=500, w=64, h=64)
+    fwd = blend.blend_fwd(feat, offsets, gx, gy)
+    before = (blend.BLEND_BWD.launches, segsum.SEGSUM.launches)
+    with pytest.raises(ValueError):
+        blend.blend_bwd(feat, offsets, fwd[:, :512].contiguous(), fwd, gx, gy)
+    with pytest.raises(ValueError):
+        segsum.segment_sum_bounds(torch.zeros((17, 8), device=dev),
+                                  torch.zeros(3, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):
+        segsum.segment_sum_bounds(torch.zeros((9, 8), device=dev),
+                                  torch.zeros(3, dtype=torch.int64, device=dev))
+    assert (blend.BLEND_BWD.launches, segsum.SEGSUM.launches) == before
 
 
 def test_launch_counters_and_input_checks(dev):
@@ -122,3 +206,44 @@ def test_rasterize_card_matches_cpu(dev):
     assert torch.allclose(got.final_t.cpu(), want.final_t, atol=3e-4, rtol=1e-3)
     for name in ("radii", "num_instances", "num_enumerated", "overflow"):
         assert torch.equal(getattr(got, name).cpu(), getattr(want, name)), name
+
+
+def test_rasterize_grads_card_match_cpu(dev):
+    """chip_smoke.py's gradient check on another scene and camera."""
+    g = random_scene(2000, seed=4, sh_degree=3)
+    want = cs.small_scene_grads(trast, g, front_camera(160, 96))
+    got = cs.small_scene_grads(trast, [x.to(dev) for x in g], front_camera(160, 96, dev))
+    for name, a, b in zip(cs.GRAD_NAMES, got, want):
+        assert torch.allclose(a.cpu(), b, atol=2e-3, rtol=5e-3), name
+        assert b.abs().max() > 0, name
+
+
+
+def test_train_step_card_matches_cpu(dev):
+    """One train step (render, loss, backward through K3 and K4, Adam,
+    densification stats) from the same state on the card and the CPU."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import train_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
+
+    opt = OptimizationConfig()
+    raw = cs.raw_params(*(x.numpy() for x in random_scene(2000, seed=6, sh_degree=3)))
+    gt = torch.rand((3, 96, 160), generator=torch.Generator().manual_seed(0))
+    out = {}
+    for d in ("cpu", dev):
+        tx = gm.make_optimizer(opt, 1.0)
+        state = gm.init_training(gm.params_from_jax(raw, device=d), 3, tx, capacity=4096)
+        step = train_lib.make_train_step(tx, opt, 3, 160, 96, max_instances=1 << 15, device=d)
+        out[str(d)] = step(state, *train_lib.camera_arrays(front_camera(160, 96, d)),
+                           gt.to(d), torch.zeros(3, device=d), True)
+    (cs_, ca), (gs, ga) = out["cpu"], out[str(dev)]
+    assert torch.allclose(ga.loss.cpu(), ca.loss, rtol=1e-4, atol=0)
+    assert torch.allclose(ga.image.cpu(), ca.image, atol=3e-4, rtol=1e-3)
+    assert int(ga.num_instances) == int(ca.num_instances) > 0
+    assert torch.equal(gs.denom.cpu(), cs_.denom)
+    assert torch.allclose(gs.xyz_grad_accum.cpu(), cs_.xyz_grad_accum, atol=2e-3 * 0.1, rtol=5e-3)
+    for name in gm.GaussianParams._fields:
+        g_mu, c_mu = getattr(gs.opt_state.mu, name).cpu(), getattr(cs_.opt_state.mu, name)
+        # mu = 0.1 g after one step: the gradient tolerance, scaled
+        assert torch.allclose(g_mu, c_mu, atol=0.1 * 2e-3, rtol=5e-3), name
+        assert c_mu.abs().max() > 0, name

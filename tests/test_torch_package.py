@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port: no JAX anywhere in it or in
 chip_smoke.py, entry points that refuse to fall back to the CPU silently,
-a forward-only rasterizer, and kernel wrappers that are bound to their
-CUDA sources and count only real launches."""
+a rasterizer whose gradients reach every differentiable input, and kernel
+wrappers that are bound to their CUDA sources and count only real
+launches."""
 
 import ast
 import os
@@ -12,9 +13,10 @@ import pytest
 import torch
 
 from gaussian_splatting_with_eye_tracking_tpu_torch import backend, train_lib
+from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as tgm
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import ply_io as tply
-from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, expand
+from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, expand, segsum
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import rasterize as trast
 from gaussian_splatting_with_eye_tracking_tpu_torch.scene.cameras import MiniCam
 from tests.helpers import make_camera, make_random_gaussians
@@ -63,6 +65,10 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: backend.resolve_device(None),
         lambda: backend.resolve_device("cuda"),
         lambda: train_lib.make_eval_render(3, 32, 32),
+        lambda: train_lib.make_train_step(tgm.make_optimizer(OptimizationConfig(), 1.0),
+                                          OptimizationConfig(), 3, 32, 32),
+        lambda: tgm.create_from_points(np.zeros((4, 3)), np.zeros((4, 3)), 0,
+                                       OptimizationConfig(), 1.0),
         lambda: cam.params(),
         lambda: tgm.params_from_jax(params),
         lambda: tply.load_gaussians_ply(path),
@@ -79,14 +85,33 @@ def _small_scene():
     return g, cam_to_torch(cam), torch.zeros(3)
 
 
-def test_rasterize_is_forward_only():
+def test_rasterize_gradients_reach_every_input():
     g, cam, bg = _small_scene()
-    g[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        trast.rasterize(*g, cam, bg, sh_degree=0, max_instances=1 << 10)
+    inputs = [x.requires_grad_(True) for x in g] + [bg.requires_grad_(True)]
+    offset = torch.zeros((g[0].shape[0], 2), requires_grad=True)
+    out = trast.rasterize(*inputs[:5], cam, inputs[5], means2d_offset=offset, sh_degree=0,
+                          max_instances=1 << 10)
+    grads = torch.autograd.grad(out.color.square().mean() + out.final_t.mean(),
+                                inputs + [offset])
+    for name, grad in zip(("means", "scales", "quats", "opacities", "sh", "bg",
+                           "means2d_offset"), grads):
+        assert torch.isfinite(grad).all() and grad.abs().max() > 0, name
     with torch.no_grad():  # rendering a trainable tensor without autograd is fine
         out = trast.rasterize(*g, cam, bg, sh_degree=0, max_instances=1 << 10)
-    assert out.color.shape == (3, 32, 32) and torch.isfinite(out.color).all()
+    assert out.color.shape == (3, 32, 32) and not out.color.requires_grad
+
+
+def test_rasterize_debug_snapshot(tmp_path, monkeypatch):
+    """debug=True saves the inputs on an exception and re-raises it."""
+    g, cam, bg = _small_scene()
+    monkeypatch.chdir(tmp_path)
+    bad_sh = g[4][:, :, :0]  # no SH coefficients: the colour evaluation fails
+    with pytest.raises(IndexError):
+        trast.rasterize(*g[:4], bad_sh, cam, bg, sh_degree=0, max_instances=1 << 10,
+                        debug=True)
+    snap = torch.load(tmp_path / "snapshot_fw.pt")
+    assert torch.equal(snap["means3d"], g[0]) and snap["width"] == 32
+    assert "means2d_offset" not in snap  # inputs not given are not saved
 
 
 def test_eval_render_rejects_model_on_other_device():
@@ -101,7 +126,8 @@ def test_eval_render_rejects_model_on_other_device():
 
 
 @pytest.mark.parametrize("kernel,source", [
-    (expand.EXPAND_SEG, "expand_seg.cu"), (blend.BLEND_FWD, "blend_fwd.cu")])
+    (expand.EXPAND_SEG, "expand_seg.cu"), (blend.BLEND_FWD, "blend_fwd.cu"),
+    (blend.BLEND_BWD, "blend_bwd.cu"), (segsum.SEGSUM, "segsum.cu")])
 def test_kernel_wrappers_bound_to_sources(kernel, source):
     src = backend.CSRC / source
     assert kernel in backend.kernels() and kernel.stem == src.stem
@@ -114,8 +140,12 @@ def test_kernel_wrappers_bound_to_sources(kernel, source):
 def test_cpu_calls_use_plain_versions_and_count_nothing():
     table = torch.tensor([[0.0, 2.0, float("inf")], [1.0, 2.0, 3.0]])
     feat = torch.zeros((16, 128))
-    before = (expand.EXPAND_SEG.launches, blend.BLEND_FWD.launches)
+    kernels = (expand.EXPAND_SEG, blend.BLEND_FWD, blend.BLEND_BWD, segsum.SEGSUM)
+    before = [k.launches for k in kernels]
     out = expand.expand_rows_by_segments(table, 0, 5)
     assert out[1].tolist() == [1.0, 1.0, 2.0, 2.0, 2.0]
-    blend.blend_fwd(feat, torch.tensor([0, 0], dtype=torch.int32), 1, 1)
-    assert (expand.EXPAND_SEG.launches, blend.BLEND_FWD.launches) == before
+    offsets = torch.tensor([0, 0], dtype=torch.int32)
+    fwd = blend.blend_fwd(feat, offsets, 1, 1)
+    blend.blend_bwd(feat, offsets, fwd, torch.ones_like(fwd), 1, 1)
+    segsum.segment_sum_bounds(table[1:], offsets)
+    assert [k.launches for k in kernels] == before

@@ -2,11 +2,16 @@
 inputs, including the extreme inputs of tests/test_math_ops.py (behind the
 camera, FOV-clamped, degenerate scale, low opacity). Floats to atol 1e-5 /
 rtol 1e-4; the integer fields (radii, tiles_touched, rect_min, rect_max)
-exactly."""
+exactly. The gradient (torch autograd through the port's forward) against
+JAX's hand-derived VJP on the same inputs and cotangents, finite and to
+the tolerance JAX holds its hand VJP to against autodiff (atol 2e-5 of the
+largest value, rtol 1e-4)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from gaussian_splatting_with_eye_tracking_tpu.ops import projection as jproj
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import projection as tproj
@@ -72,3 +77,31 @@ def test_rect_truncates_toward_zero():
                            cam_to_torch(cam))
     _compare(got, want)
     assert (got.means2d[:, 0] < 0).any()
+
+
+@pytest.mark.parametrize("sh_degree", [0, 3])
+@pytest.mark.parametrize("extreme", [False, True])
+def test_preprocess_vjp_matches_jax(sh_degree, extreme):
+    g = _scene(400, 0, sh_degree, extreme)
+    cam = make_camera(96, 80)
+    mask = np.arange(400) < 400 - 7
+    rng = np.random.default_rng(42)
+    fields = ("means2d", "depths", "conics", "rgb", "opacities")
+    want_prep = jproj.preprocess(*g, sh_degree, cam, active_mask=jnp.asarray(mask))
+    cots = [rng.standard_normal(getattr(want_prep, f).shape).astype(np.float32)
+            for f in fields]
+
+    def jloss(*x):
+        prep = jproj.preprocess(*x, sh_degree, cam, active_mask=jnp.asarray(mask))
+        return sum(jnp.vdot(getattr(prep, f), c) for f, c in zip(fields, cots))
+
+    want = jax.grad(jloss, argnums=tuple(range(5)))(*g)
+    inputs = [to_torch(x).requires_grad_(True) for x in g]
+    prep = tproj.preprocess(*inputs, sh_degree, cam_to_torch(cam), active_mask=to_torch(mask))
+    loss = sum((getattr(prep, f) * to_torch(c)).sum() for f, c in zip(fields, cots))
+    got = torch.autograd.grad(loss, inputs)
+    for name, a, b in zip(("means3d", "scales", "quats", "opacities", "sh"), got, want):
+        b = np.asarray(b)
+        assert torch.isfinite(a).all(), name
+        assert_close(a, b, atol=2e-5 * np.abs(b).max(), rtol=1e-4, msg=name)
+
