@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card
-and check them.
+"""Drive the PyTorch port's serving, eye-tracked foveated serving and
+training paths on one CUDA card and check them.
 
 Run from the repository root, with no arguments:
 
@@ -22,10 +22,28 @@ Phases (any failure raises and the script exits non-zero):
     chunks_done equal on all but 0.1% of tiles);
  6. time each view and each kernel with CUDA events (warm-up, then the
     median of 10), beside the plain versions and the library yardstick;
- 7. render a small scene on the card and on the CPU (plain versions) and
+ 7. eye tracking: draw a synthetic 640x400 eye (seed 0, pupil at gaze uv
+    (0.55, 0.45)) and run RITnet and ``track_render.estimate_gaze`` on the
+    card and on the CPU (logits within 1e-3 of their largest magnitude,
+    class maps differing on at most 0.1% of pixels, gaze within 1 px);
+ 8. foveated frames of the served model at the front camera, gaze from
+    phase 7, rings (H/8, H/4, H/2), bench.py's enumeration capacity, through
+    ``track_render.foveated_view``: the 5-step frame, the fused frame
+    (within 1e-3 of the 5-step one), the fused frame with decimation
+    (4, 2, 1, 1) and with ``predecimate`` (fewer instances); no overflow,
+    images finite and in range; the launch counters, zeroed before each
+    frame, show ``blend_round`` 4 times per 5-step frame, ``blend_levels``
+    once per fused frame, and no other compositor;
+ 9. on that view's inputs, hold the foveated kernels against their plain
+    versions (each round; the levels kernel in its three decimation
+    modes): rgb/final_T within 1e-3 on the rows rendered, zero rows above
+    a tile's level, chunks run equal on all but 0.1% of tiles;
+10. time them, and the foveated breakdown (``fps_foveated``: step 0, each
+    round, each frame, the plain view), RITnet, and eye image -> frame;
+11. render a small scene on the card and on the CPU (plain versions) and
     compare them (atol 3e-4 / rtol 1e-3, integer outputs exact), then its
     gradients with respect to every input (atol 2e-3 / rtol 5e-3);
- 8. train: the same model with f_dc perturbed by N(0, 0.1), in a training
+12. train: the same model with f_dc perturbed by N(0, 0.1), in a training
     state of next_pow2(300,000) = 524,288 slots with the default
     OptimizationConfig, fitted to the images served in phase 4: 8 train
     steps over the four views (stats accumulated), a densify step (the
@@ -34,12 +52,12 @@ Phases (any failure raises and the script exits non-zero):
     and PSNR finite at every step; the second pass over the views has a
     lower loss than the first; the launch counters, zeroed before and read
     after, show the backward kernels once per step;
- 9. on the front view's real cotangents, hold the backward kernels
+13. on the front view's real cotangents, hold the backward kernels
     against their plain versions (blend_bwd per row within 1e-3 of the
     row's largest value plus 1e-3 of each value, and exactly 0 on chunks
     past chunks_done; segsum within 1e-5 of the row's largest value), and
     time the train step, its phases, its peak memory and the kernels;
-10. print a ``{"kernels": [...]}`` line, then as the last line
+14. print a ``{"kernels": [...]}`` line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
@@ -59,12 +77,10 @@ import time
 import numpy as np
 import torch
 
-W, H, N = 1920, 1088, 300_000
-MAX_INSTANCES = (1 << 20) + (1 << 19) + (1 << 16)  # bench.py's capacities
-MAX_LIVE = (1 << 20) + (1 << 18) + (1 << 17)
-FOV = math.radians(60.0)
+from gaussian_splatting_with_eye_tracking_tpu_torch.bench_scene import (
+    H, MAX_INSTANCES, MAX_LIVE, N, REPS, W, make_scene, raw_params, view_request)
+
 VIEWS = [(0.0, 0.0), (6.0, 0.0), (-5.0, 3.0), (3.0, -4.0)]  # (yaw, pitch) degrees
-REPS = 10
 EXTENT = 5.0  # scene extent (the cameras' distance): xyz lr scale and densify sizes
 TRAIN_STEPS = 8  # before the densify step
 CAP_QUANTUM = 1 << 16  # instance capacities after densify, rounded up to this
@@ -82,48 +98,32 @@ REPLACES = {
     "blend_fwd": "gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py:563",
     "blend_bwd": "gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py:600",
     "segsum": "gaussian_splatting_with_eye_tracking_tpu/ops/segsum.py:31",
+    "blend_round": "gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py:563",
+    "blend_levels": "gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py:1260",
 }
+
+EYE_H, EYE_W = 400, 640  # the OpenEDS frame that RITnet serves
+EYE_GAZE_UV = (0.55, 0.45)  # where the synthetic eye's pupil sits
+DECIMATION = (4, 2, 1, 1)  # the gaze-driven frame's per-level steps (ops/amr.py)
 
 
 def log(*args):
     print(*args, flush=True)
 
 
-def make_scene(n, seed=0, sh_degree=3, spread=2.5, depth_range=(3.0, 7.0),
-               scale_range=(-4.6, -3.0)):
-    """bench.py's scene, drawn in the order tests/helpers.py draws it."""
+def make_eye(seed=0, height=EYE_H, width=EYE_W, gaze_uv=EYE_GAZE_UV):
+    """A synthetic grayscale eye (uint8): skin, a sclera ellipse, an iris
+    and a dark pupil centred at gaze_uv * (width, height), with noise."""
     rng = np.random.default_rng(seed)
-    means = np.stack([
-        rng.uniform(-spread, spread, n),
-        rng.uniform(-spread, spread, n),
-        rng.uniform(depth_range[0] - 5.0, depth_range[1] - 5.0, n),
-    ], axis=-1).astype(np.float32)
-    scales = np.exp(rng.uniform(scale_range[0], scale_range[1], (n, 3))).astype(np.float32)
-    quats = rng.normal(size=(n, 4)).astype(np.float32)
-    quats /= np.linalg.norm(quats, axis=-1, keepdims=True)
-    opacities = rng.uniform(0.2, 0.95, n).astype(np.float32)
-    sh = rng.normal(scale=0.3, size=(n, 3, (sh_degree + 1) ** 2)).astype(np.float32)
-    sh[:, :, 0] += 0.8
-    return means, scales, quats, opacities, sh
-
-
-def raw_params(means, scales, quats, opacities, sh):
-    """Activated scene -> the snapshot's raw (pre-activation) fields."""
-    return dict(xyz=means, f_dc=sh[:, :, :1], f_rest=sh[:, :, 1:],
-                scaling=np.log(scales), rotation=quats,
-                opacity=np.log(opacities / (1.0 - opacities))[:, None])
-
-
-def view_request(tf, MiniCam, yaw_deg, pitch_deg, width=W, height=H):
-    """bench.py's camera (at z = -5 looking down +z) turned by yaw/pitch."""
-    y, p = math.radians(yaw_deg), math.radians(pitch_deg)
-    ry = np.array([[math.cos(y), 0, math.sin(y)], [0, 1, 0], [-math.sin(y), 0, math.cos(y)]])
-    rx = np.array([[1, 0, 0], [0, math.cos(p), -math.sin(p)], [0, math.sin(p), math.cos(p)]])
-    R = ry @ rx  # camera-to-world rotation
-    center = np.array([0.0, 0.0, -5.0])
-    view = tf.world_to_view(R, -R.T @ center)
-    full = (tf.projection_matrix(0.01, 100.0, FOV, FOV) @ view).astype(np.float32)
-    return MiniCam(width, height, FOV, FOV, 0.01, 100.0, view, full)
+    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
+    img = np.full((height, width), 150.0)  # skin
+    sclera = ((xx - width / 2) / (0.42 * width)) ** 2 + ((yy - height / 2) / (0.3 * height)) ** 2
+    img[sclera <= 1.0] = 215.0
+    r = np.hypot(xx - gaze_uv[0] * width, yy - gaze_uv[1] * height)
+    img[r <= 0.19 * height] = 95.0  # iris
+    img[r <= 0.08 * height] = 25.0  # pupil
+    img += rng.normal(0.0, 6.0, img.shape)
+    return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
 def cuda_ms(fn, reps=REPS, warmup=1):
@@ -175,7 +175,7 @@ def fit_caps(state, cams, bg, caps):
 
 
 def train_phase(params, cams, targets, bg):
-    """Phase 8: the training path on the 300k model. Returns the losses,
+    """Phase 12: the training path on the 300k model. Returns the losses,
     densify counts, the kernels' launches over the run, the capacities,
     the state after the first 8 steps and its train step."""
     from gaussian_splatting_with_eye_tracking_tpu_torch import backend, train_lib
@@ -270,7 +270,7 @@ def splat_inputs(state, cam):
 
 
 def backward_checks(state, cam, target, bg, step):
-    """Phase 9: the backward kernels against their plain versions on the
+    """Phase 13: the backward kernels against their plain versions on the
     front view's real cotangents, their bounds, and the timings of the
     train step (whole, by phase, peak memory) and of the kernels."""
     from gaussian_splatting_with_eye_tracking_tpu_torch import train_lib
@@ -396,19 +396,220 @@ def backward_checks(state, cam, target, bg, step):
     }
 
 
+def eye_phase():
+    """Phase 7: RITnet on the synthetic eye, card against CPU (logits
+    within 1e-3 of their largest magnitude, class maps differing on at most
+    0.1 % of pixels, gaze within 1 px); returns the card's model, the eye,
+    its gaze and the numbers."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import track_render
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet
+
+    eye = make_eye()
+    models = {d: ritnet.load_pretrained(device=d) for d in ("cuda", "cpu")}
+    x = ritnet.preprocess_eye_image(eye, device="cpu")
+    with torch.no_grad():
+        logits = {d: m(x.to(d)).cpu() for d, m in models.items()}
+    scale = float(logits["cpu"].abs().max())
+    err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    if not err <= 1e-3 * scale:
+        raise AssertionError(f"RITnet logits differ between card and CPU by {err} (max {scale})")
+    gaze = {d: track_render.estimate_gaze(eye, m, device=d) for d, m in models.items()}
+    (uv, pred), (uv_cpu, pred_cpu) = gaze["cuda"], gaze["cpu"]
+    differ = float((pred.cpu() != pred_cpu).float().mean())
+    gaze_err = float(np.abs((uv - uv_cpu) * np.array([EYE_W, EYE_H])).max())
+    if differ > 1e-3 or gaze_err > 1.0:
+        raise AssertionError(f"RITnet card vs CPU: {differ:.2%} of pixels differ, gaze off by "
+                             f"{gaze_err} px")
+    classes = torch.bincount(pred.flatten(), minlength=4).tolist()
+    log(f"RITnet {EYE_W}x{EYE_H} synthetic eye: logits card vs CPU max |err| {err:.3g} "
+        f"(max |logit| {scale:.3g}); class maps differ on {differ:.4%}; gaze uv card "
+        f"{uv.round(4).tolist()} vs CPU {uv_cpu.round(4).tolist()} ({gaze_err:.3g} px); "
+        f"pupil class found: {classes[3] > 0} (pixels per class {classes}; drawn at "
+        f"uv {list(EYE_GAZE_UV)})")
+    return models["cuda"], eye, uv, {"logit_err": err, "pred_differ": differ,
+                                     "gaze_err_px": gaze_err, "gaze_uv": uv.tolist()}
+
+
+def amr_bound(work, out_numel, index_numel):
+    """(bound ms, bound_by) of a foveated compositor launch set from the
+    work its plain version counted: K2's per-pair costs, plus per staged
+    in-range instance a log of opacity, per pair whose alpha is rescaled by
+    decimation an exp and 2 flops; bytes: 9 feature rows per staged
+    instance, the per-tile index arrays, the output written."""
+    sfu = work["exp_lanes"] + 2 * work["kept"] + work["rescaled"] + work["staged"]
+    flops = 10 * work["lanes"] + 2 * work["exp_lanes"] + 11 * work["kept"] + 2 * work["rescaled"]
+    nbytes = 4 * (9 * work["staged"] + index_numel + out_numel)
+    times = {"operations": max(sfu / SFU_OPS_PER_S, flops / FP32_FLOPS_PER_S),
+             "bytes": nbytes / HBM_BYTES_PER_S}
+    by = max(times, key=times.get)
+    log(f"  {work}: {sfu} transcendentals {sfu / SFU_OPS_PER_S * 1e3:.4f} ms, {flops} fp32 "
+        f"flops {flops / FP32_FLOPS_PER_S * 1e3:.4f} ms, {nbytes / 1e6:.1f} MB "
+        f"{times['bytes'] * 1e3:.4f} ms")
+    return times[by] * 1e3, by
+
+
+def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
+    """Phases 8-10: the eye-tracked foveated frames on the served model,
+    the foveated kernels against their plain versions on the front view's
+    inputs, and the timings. Returns the two kernels' entries and a
+    summary."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import backend, fps_foveated
+    from gaussian_splatting_with_eye_tracking_tpu_torch import track_render
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend
+
+    dev = cam.viewmatrix.device
+    gx, gy = -(-W // 32), -(-H // 32)
+    radii = (H / 8, H / 4, H / 2)
+    view = dict(radii=radii, max_instances=MAX_INSTANCES)
+    frames = {"five_step": dict(fused=False), "fused": dict(),
+              "decimated": dict(decimation=DECIMATION),
+              "predecimated": dict(decimation=DECIMATION, predecimate=True)}
+    want = {"five_step": {"blend_round": 4, "blend_levels": 0},
+            "fused": {"blend_round": 0, "blend_levels": 1}}
+    images, states, launches = {}, {}, {}
+    for name, kw in frames.items():
+        torch.cuda.synchronize()
+        for kern in backend.kernels():
+            kern.launches = 0
+        images[name], states[name] = track_render.foveated_view(
+            state, cam, bg, gaze_uv, 3, **view, **kw)
+        torch.cuda.synchronize()
+        launches[name] = got = {kern.name: kern.launches for kern in backend.kernels()}
+        need = want.get(name, want["fused"])
+        bad = {k: got[k] for k in ("blend_round", "blend_levels") if got[k] != need[k]}
+        bad.update({k: got[k] for k in ("blend_fwd", "blend_bwd", "segsum") if got[k]})
+        if bad or got["expand_seg"] < 1:
+            raise AssertionError(f"{name} frame launched {got}")
+        img, st = images[name], states[name]
+        if bool(st.overflow):
+            raise AssertionError(f"{name} frame: instance capacity overflow")
+        lo, hi = float(img.min()), float(img.max())
+        if img.shape != (3, H, W) or not torch.isfinite(img).all() or lo < 0 or hi > 2 or hi == 0:
+            raise AssertionError(f"{name} frame: shape {tuple(img.shape)}, range [{lo}, {hi}]")
+        log(f"foveated {name} frame: {int(st.num_instances)} instances, levels 1-4 "
+            f"{torch.bincount(st.tile_levels, minlength=5)[1:].tolist()}, launches "
+            f"{ {k: v for k, v in got.items() if v} }, mean {float(img.mean()):.4f}")
+    fused_err = float((images["fused"] - images["five_step"]).abs().max())
+    if not fused_err <= 1e-3:
+        raise AssertionError(f"fused frame differs from the 5-step frame by {fused_err}")
+    n_full, n_pre = (int(states[k].num_instances) for k in ("fused", "predecimated"))
+    if not n_pre < n_full:
+        raise AssertionError(f"predecimate kept {n_pre} of {n_full} instances")
+    log(f"fused vs 5-step frame max |err| {fused_err:.3g}; predecimate kept {n_pre} of "
+        f"{n_full} instances; decimated frame vs fused max |diff| "
+        f"{float((images['decimated'] - images['fused']).abs().max()):.3g}")
+
+    # the kernels against their plain versions on the front view's inputs
+    st, pre = states["five_step"], states["predecimated"]
+    counts = (st.offsets[1:] - st.offsets[:-1]).to(torch.int32)
+    pre_counts = (pre.offsets[1:] - pre.offsets[:-1]).to(torch.int32)
+
+    def compare(name, got, want_, rows_valid):
+        err = float((got[..., 0:4] - want_[..., 0:4])[rows_valid].abs().max())
+        bad_tiles = int((got[:, 0, 4] != want_[:, 0, 4]).sum())
+        if not err <= 1e-3 or bad_tiles > 0.001 * gx * gy:
+            raise AssertionError(f"{name}: max |err| {err}, chunks run differ on {bad_tiles} tiles")
+        if got[~rows_valid].any():
+            raise AssertionError(f"{name}: rows above the tile's level are not zero")
+        log(f"{name} vs plain: max |err| rgb/final_T {err:.3g}, chunks run differ on "
+            f"{bad_tiles} of {gx * gy} tiles")
+        return err
+
+    round_args, round_work, round_err = [], {}, 0.0
+    with torch.no_grad():
+        for rnd in range(1, 5):
+            offx, offy = blend.ROUND_OFFX[rnd - 1], blend.ROUND_OFFY[rnd - 1]
+            gated = torch.where(st.tile_levels >= rnd, counts, 0)
+            a = (st.feat_soa, st.offsets, gx, gy)
+            kw = dict(offx=offx, offy=offy, counts_override=gated)
+            got = blend.blend_round(*a, **kw)
+            plain = blend.blend_round_plain(*a, **kw, work=round_work)
+            torch.cuda.synchronize()
+            valid = torch.ones(got.shape[:2], dtype=torch.bool, device=got.device)
+            round_err = max(round_err, compare(f"blend_round {rnd}", got, plain, valid))
+            round_args.append((a, kw))
+        sub = 256
+        row_round = torch.arange(4 * sub, device=st.offsets.device) // sub
+        modes = {"(1,1,1,1)": (st, counts, (1, 1, 1, 1), False),
+                 f"{DECIMATION}": (st, counts, DECIMATION, False),
+                 f"{DECIMATION} scale_only": (pre, pre_counts, DECIMATION, True)}
+        level_work, level_err, level_ms = {}, 0.0, {}
+        for mode, (s, c, dec, so) in modes.items():
+            a = (s.feat_soa, s.offsets, c, s.tile_levels, gx, gy)
+            kw = dict(decimation=dec, scale_only=so)
+            got = blend.blend_levels(*a, **kw)
+            work = {}
+            plain = blend.blend_levels_plain(*a, **kw, work=work)
+            torch.cuda.synchronize()
+            valid = row_round[None, :] < s.tile_levels[:, None]
+            level_err = max(level_err, compare(f"blend_levels {mode}", got, plain, valid))
+            level_ms[mode] = cuda_ms(lambda: blend.blend_levels(*a, **kw))
+            if not level_work:
+                level_work, level_args = work, (a, kw)
+        round_ms = [cuda_ms(lambda a=a, kw=kw: blend.blend_round(*a, **kw))
+                    for a, kw in round_args]
+        round_plain_ms = [cuda_ms(lambda a=a, kw=kw: blend.blend_round_plain(*a, **kw))
+                          for a, kw in round_args]
+        a, kw = level_args
+        level_plain_ms = cuda_ms(lambda: blend.blend_levels_plain(*a, **kw))
+    log("blend_round ms per round " + ", ".join(f"{t:.4f}" for t in round_ms)
+        + "; plain " + ", ".join(f"{t:.2f}" for t in round_plain_ms))
+    log("blend_levels ms " + ", ".join(f"{k} {v:.4f}" for k, v in level_ms.items())
+        + f"; plain (1,1,1,1) {level_plain_ms:.2f}")
+    log("blend_round bound over the four rounds:")
+    round_bound = amr_bound(round_work, 4 * gx * gy * sub * 8, 4 * (2 * gx * gy + 1))
+    log("blend_levels bound, (1,1,1,1):")
+    level_bound = amr_bound(level_work, gx * gy * 4 * sub * 8, 3 * gx * gy + 1)
+
+    # timings: the foveated breakdown, RITnet, eye image -> frame
+    gaze_xy = torch.tensor([gaze_uv[0] * W, gaze_uv[1] * H], device=dev)
+    fps = fps_foveated.run_foveated_breakdown(
+        state, cam, bg, gaze_xy=gaze_xy, radii=torch.tensor(radii, device=dev),
+        decimation=DECIMATION, max_instances=MAX_INSTANCES, max_live=MAX_LIVE, reps=REPS,
+        device=dev)
+    model_input = ritnet.preprocess_eye_image(eye, device=dev)
+    with torch.no_grad():
+        fps["ritnet_ms"] = cuda_ms(lambda: model(model_input))
+    fps["estimate_gaze_ms"] = cuda_ms(lambda: track_render.estimate_gaze(eye, model, device=dev))
+    fps["eye_to_frame_ms"] = cuda_ms(lambda: track_render.foveated_view(
+        state, cam, bg, track_render.estimate_gaze(eye, model, device=dev)[0], 3, **view))
+    fps["served_view_ms"] = serve_ms
+    log("foveated timings (ms, median of 10): " + json.dumps(
+        {k: v for k, v in fps.items() if k.endswith("ms") or k.endswith("_vs_plain")}))
+    log(f"fused / plain served view = {fps['fused_ms'] / serve_ms:.3f}; fused / plain "
+        f"frame in the breakdown = {fps['fused_vs_plain']:.3f}; peak "
+        f"{fps.get('fused_peak_mib')} MiB, {fps.get('fused_held_mib')} MiB of it held before "
+        f"the frame")
+    src = "gaussian_splatting_with_eye_tracking_tpu_torch/csrc/blend_amr.cu"
+    kernels = [
+        {"name": "blend_round", "route": "cuda", "source": src,
+         "replaces": REPLACES["blend_round"], "launches": launches["five_step"]["blend_round"],
+         "max_abs_err": round_err, "ms": sum(round_ms), "plain_ms": sum(round_plain_ms),
+         "bound_ms": round_bound[0], "bound_by": round_bound[1], "library_ms": None},
+        {"name": "blend_levels", "route": "cuda", "source": src,
+         "replaces": REPLACES["blend_levels"],
+         "launches": sum(launches[k]["blend_levels"] for k in frames),
+         "max_abs_err": level_err, "ms": level_ms["(1,1,1,1)"], "plain_ms": level_plain_ms,
+         "bound_ms": level_bound[0], "bound_by": level_bound[1], "library_ms": None},
+    ]
+    summary = {"launches": launches, "fused_vs_five_step_err": fused_err,
+               "instances": n_full, "predecimated_instances": n_pre, "timings": fps,
+               "levels": torch.bincount(st.tile_levels, minlength=5)[1:].tolist(),
+               "blend_round_ms": round_ms, "blend_levels_ms": level_ms}
+    return kernels, summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from gaussian_splatting_with_eye_tracking_tpu_torch import backend, renderer, train_lib
     from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
     from gaussian_splatting_with_eye_tracking_tpu_torch.models import ply_io
     from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning, blend, expand
     from gaussian_splatting_with_eye_tracking_tpu_torch.ops import projection
     from gaussian_splatting_with_eye_tracking_tpu_torch.ops import rasterize as rast
-    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import transforms as tf
-    from gaussian_splatting_with_eye_tracking_tpu_torch.scene.cameras import MiniCam
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -450,7 +651,7 @@ def main() -> int:
     log(f"scene: {N} gaussians, SH {sh_degree}, PLY round trip ok "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    cams = [view_request(tf, MiniCam, y, p) for y, p in VIEWS]
+    cams = [view_request(y, p) for y, p in VIEWS]
     render = train_lib.make_eval_render(3, W, H, max_instances=MAX_INSTANCES,
                                         max_live=MAX_LIVE)
 
@@ -575,10 +776,15 @@ def main() -> int:
         f"{k2_flops / FP32_FLOPS_PER_S * 1e3:.4f} ms, "
         f"{k2_bytes / 1e6:.1f} MB {k2_times['bytes'] * 1e3:.4f} ms")
 
-    # -- 7. small scene: card (kernels) vs CPU (plain versions) ---------------
+    # -- 7-10. eye tracking, foveated frames, their kernels and timings --------
+    model, eye, gaze_uv, eye_info = eye_phase()
+    fov_kernels, fov = foveated_phase(state, cams[0].params(), bg, model, eye, gaze_uv,
+                                      view_ms[0])
+
+    # -- 11. small scene: card (kernels) vs CPU (plain versions) --------------
     small = [torch.from_numpy(a) for a in make_scene(2000, seed=1, spread=1.5,
                                                      scale_range=(-3.5, -2.0))]
-    small_cam = view_request(tf, MiniCam, 4.0, -2.0, 128, 96)
+    small_cam = view_request(4.0, -2.0, 128, 96)
     outs = {}
     with torch.no_grad():
         for d in ("cuda", "cpu"):
@@ -605,9 +811,9 @@ def main() -> int:
     log("small scene gradients card vs CPU max |err|: "
         + ", ".join(f"{k} {v:.3g}" for k, v in grad_errs.items()))
 
-    # -- 8. training ------------------------------------------------------
+    # -- 12. training -----------------------------------------------------
     train = train_phase(params, cams, images, bg)
-    # -- 9. backward kernels vs plain versions, timings -----------------------
+    # -- 13. backward kernels vs plain versions, timings ----------------------
     bwd = backward_checks(train["state8"], cams[0], images[0], bg, train["step"])
 
     src = "gaussian_splatting_with_eye_tracking_tpu_torch/csrc/{}.cu"
@@ -627,11 +833,13 @@ def main() -> int:
         {"name": "segsum", "route": "cuda", "source": src.format("segsum"),
          "replaces": REPLACES["segsum"], "launches": train["launches"]["segsum"],
          **bwd["segsum"]},
+        *fov_kernels,
     ]
     log(json.dumps({"views_ms": view_ms, "peak_mib": peak_mb, "card": smi}))
     log(json.dumps({"train": {k: train[k] for k in ("losses", "l1", "psnr", "densify",
                                                      "launches", "caps")},
                     "step": bwd["step"], "card": smi}))
+    log(json.dumps({"foveated": fov, "eye": eye_info, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

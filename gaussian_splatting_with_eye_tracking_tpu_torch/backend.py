@@ -4,9 +4,10 @@ Each ``csrc/<stem>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 its own shared library with a plain C interface and loaded with ``ctypes``:
 no PyTorch headers, so a build takes seconds. All sources build together,
 one ``nvcc`` process each, at the first launch of any kernel (or an explicit
-``build_kernels()``), into ``build/kernels/`` at the repository root. A
-library's file name carries a digest of its source and flags, so an edited
-source is rebuilt and an unchanged one is reused.
+``build_kernels()``), into ``build/kernels/`` at the repository root.
+Code shared between sources lives in ``csrc/*.cuh`` headers. A library's
+file name carries a digest of its source, the headers and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
 
 Every C entry point takes raw device pointers and the CUDA stream as
 ``void*``, launches on that stream and returns ``cudaGetLastError()``;
@@ -71,7 +72,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 

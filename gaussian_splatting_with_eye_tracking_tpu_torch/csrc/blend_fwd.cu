@@ -4,22 +4,9 @@
 // Replaces the TPU kernel gaussian_splatting_with_eye_tracking_tpu/ops/
 // pallas_blend.py::_fwd_kernel (with _blend_stream_loop and _alpha_terms;
 // entry _fwd_call), variant stride=1, n_rounds=0, step=1. Input: the
-// (16, kp) struct-of-arrays feature array [x, y, conic a, b, c, r, g, b,
-// opacity, gauss_id, pad...] in depth-sorted CSR order and the (T+1)
-// offsets. Output (T, 1024, 8) per pixel: rgb (no background), exp(logT),
-// chunks_done, logT, 0, 0. What it reproduces exactly:
-//   - chunks are aligned to GLOBAL multiples of 128: start = o/128*128,
-//     n_chunks = n ? ceil((o+n-start)/128) : 0; lanes outside [o, o+n)
-//     get log(op) = -inf;
-//   - alpha_raw = exp(power + log op), alpha = min(0.99, alpha_raw), kept
-//     iff power <= 0 && alpha_raw >= 1/255, with the FMA-chained power;
-//   - transmittance stays in log space: w = alpha * exp(logT + local)
-//     with local the chunk's exclusive prefix of log(1 - alpha), and
-//     logT += the chunk's sum after the chunk;
-//   - the TILE exits after a whole chunk once max(logT) < ln 1e-4
-//     (__syncthreads_or over the block), not per pixel.
-// A lane that fails the gate has alpha = 0, so it adds w = 0 and
-// log(1 - 0) = 0: skipping its log and second exp changes no value.
+// (16, kp) feature array and the (T+1) offsets; output (T, 1024, 8), one
+// row per pixel of the tile in row-major order. The chunk loop and what it
+// reproduces exactly are composite.cuh's.
 //
 // Bound: operations. Each (pixel, in-range instance) pair of the chunks a
 // tile runs costs ~10 fp32 flops, an exp where power <= 0, and a log, an
@@ -27,113 +14,33 @@
 // special-function units bound it. The TPU kernel evaluated a
 // (1024, 128) alpha matrix per chunk on the vector unit and ran the
 // transmittance recurrence as MXU triangular-matrix products; here one
-// CTA owns one tile and each of its 256 threads owns 4 pixels and walks
-// the chunk's 128 instances in order (a sequential scan in registers).
-// Each chunk's per-instance terms (x, y, -a/2, -b, -c/2, log op, rgb) are
-// staged once in shared memory with coalesced loads and read back as
-// broadcasts.
+// CTA owns one tile and each of its 256 threads owns 4 pixels, rows
+// tid / 32 + 8j of column tid % 32.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "composite.cuh"
 
 namespace {
 
-constexpr int TILE = 32;
 constexpr int PIX = TILE * TILE;
-constexpr int CHUNK = 128;
-constexpr int THREADS = 256;
 constexpr int PPT = PIX / THREADS;  // pixels per thread
-constexpr int OUTC = 8;
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float LOG_T_MIN = -9.210340371976182f;  // ln(1e-4)
 
 __global__ void __launch_bounds__(THREADS)
 blend_fwd_kernel(const float* __restrict__ feat, int kp,
                  const int* __restrict__ offsets, int grid_x,
                  float* __restrict__ out) {
-  __shared__ float s_x[CHUNK], s_y[CHUNK], s_ha[CHUNK], s_nb[CHUNK],
-      s_hc[CHUNK], s_lo[CHUNK], s_r[CHUNK], s_g[CHUNK], s_b[CHUNK];
-
+  __shared__ Stage s;
   const int t = blockIdx.x;
   const int o = offsets[t];
-  const int n = offsets[t + 1] - o;
-  const int start = (o / CHUNK) * CHUNK;
-  const int n_chunks = n > 0 ? (o + n - start + CHUNK - 1) / CHUNK : 0;
   const int ox = (t % grid_x) * TILE;
   const int oy = (t / grid_x) * TILE;
-
-  float px[PPT], py[PPT], log_t[PPT], cr[PPT], cg[PPT], cb[PPT];
+  float px[PPT], py[PPT];
 #pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    const int p = threadIdx.x + j * THREADS;
-    px[j] = (float)(ox + p % TILE);
-    py[j] = (float)(oy + p / TILE);
-    log_t[j] = 0.f;
-    cr[j] = cg[j] = cb[j] = 0.f;
+  for (int j = 0; j < PPT; ++j) {  // pixel p = tid + 256 j of the tile
+    px[j] = (float)(ox + threadIdx.x % TILE);
+    py[j] = (float)(oy + threadIdx.x / TILE + j * (THREADS / TILE));
   }
-
-  int ci = 0;
-  while (ci < n_chunks) {
-    if (threadIdx.x < CHUNK) {
-      const int l = threadIdx.x;
-      const int id = start + ci * CHUNK + l;  // < kp: kp is a chunk multiple >= o+n
-      const bool valid = id >= o && id < o + n;
-      s_x[l] = feat[id];
-      s_y[l] = feat[(int64_t)1 * kp + id];
-      s_ha[l] = -0.5f * feat[(int64_t)2 * kp + id];
-      s_nb[l] = -feat[(int64_t)3 * kp + id];
-      s_hc[l] = -0.5f * feat[(int64_t)4 * kp + id];
-      s_r[l] = feat[(int64_t)5 * kp + id];
-      s_g[l] = feat[(int64_t)6 * kp + id];
-      s_b[l] = feat[(int64_t)7 * kp + id];
-      s_lo[l] = valid ? logf(feat[(int64_t)8 * kp + id]) : -INFINITY;
-    }
-    __syncthreads();
-
-    float local[PPT];
-#pragma unroll
-    for (int j = 0; j < PPT; ++j) local[j] = 0.f;
-    for (int l = 0; l < CHUNK; ++l) {
-      const float fx = s_x[l], fy = s_y[l];
-      const float ha = s_ha[l], nb = s_nb[l], hc = s_hc[l], lo = s_lo[l];
-#pragma unroll
-      for (int j = 0; j < PPT; ++j) {
-        const float dx = fx - px[j];
-        const float dy = fy - py[j];
-        const float power = (ha * dx + nb * dy) * dx + (hc * dy) * dy;
-        if (power <= 0.f) {
-          const float alpha_raw = expf(power + lo);
-          if (alpha_raw >= ALPHA_MIN) {
-            const float alpha = fminf(ALPHA_MAX, alpha_raw);
-            const float w = alpha * expf(log_t[j] + local[j]);
-            cr[j] += w * s_r[l];
-            cg[j] += w * s_g[l];
-            cb[j] += w * s_b[l];
-            local[j] += logf(1.f - alpha);
-          }
-        }
-      }
-    }
-    bool alive = false;
-#pragma unroll
-    for (int j = 0; j < PPT; ++j) {
-      log_t[j] += local[j];
-      alive |= log_t[j] >= LOG_T_MIN;
-    }
-    ++ci;
-    // also the barrier before the next chunk overwrites shared memory
-    if (!__syncthreads_or(alive)) break;
-  }
-
-#pragma unroll
-  for (int j = 0; j < PPT; ++j) {
-    const int p = threadIdx.x + j * THREADS;
-    float4* dst = reinterpret_cast<float4*>(out + ((int64_t)t * PIX + p) * OUTC);
-    dst[0] = make_float4(cr[j], cg[j], cb[j], expf(log_t[j]));
-    dst[1] = make_float4((float)ci, log_t[j], 0.f, 0.f);
-  }
+  composite<PPT>(s, feat, kp, o, offsets[t + 1] - o, 1, false, px, py,
+                 out + ((int64_t)t * PIX + threadIdx.x) * OUTC);
 }
 
 }  // namespace

@@ -1,7 +1,7 @@
 """Tile binning: duplicate gaussians per overlapped tile, depth-sort, ranges.
 
-Port of ``Binning``, ``SortedInstances``, ``_tile_ellipse_kept`` and
-``build_sorted_instances`` (without gaze decimation) from
+Port of ``Binning``, ``SortedInstances``, ``_tile_ellipse_kept``,
+``gaze_decimation_keep`` and ``build_sorted_instances`` from
 ``gaussian_splatting_with_eye_tracking_tpu/ops/binning.py``. The pipeline:
 
   1. compact the live gaussians' 16 attribute columns, keeping their
@@ -12,7 +12,8 @@ Port of ``Binning``, ``SortedInstances``, ``_tile_ellipse_kept`` and
   3. decode each slot's tile, cull it with the exact ellipse-vs-tile test,
      and sort the slots once on a packed int64 (tile, depth rank) key; the
      10 feature rows follow the sort permutation and form the blend
-     kernel's SoA input;
+     kernel's SoA input (with ``gaze_decim``, the foveated decimation
+     drops a gaze-dependent share of the slots before the sort);
   4. for the backward, each sorted instance's position in gaussian-id
      order (``id_pos``), from the same permutation.
 
@@ -94,6 +95,27 @@ def _tile_ellipse_kept(tx, ty, cx, cy, ca, cb, cc, thr, tile_px):
     return qmin <= 1.0 + 1e-4
 
 
+def gaze_decimation_keep(tx, ty, gid, gaze_xy, radii, steps, tile_px):
+    """Binning-time foveated decimation: keep gaussian ``gid``'s instance
+    in tile (tx, ty) iff gid % step == (ty*797 + tx) % step, where step is
+    ``steps[L-1]`` for the tile's gaze-ring level L (4 inside radii[0], one
+    less past each further ring, by squared tile-centre distance as
+    ``ops/amr.gaze_levels`` computes it). Formula for formula the JAX
+    one."""
+    cx = tx.to(torch.float32) * tile_px + tile_px / 2.0 - gaze_xy[0]
+    cy = ty.to(torch.float32) * tile_px + tile_px / 2.0 - gaze_xy[1]
+    d2 = cx * cx + cy * cy
+    lvl = 4 - ((d2 > radii[0] * radii[0]).to(torch.int64)
+               + (d2 > radii[1] * radii[1]).to(torch.int64)
+               + (d2 > radii[2] * radii[2]).to(torch.int64))
+    st = torch.ones_like(lvl)
+    for level in (1, 2, 3, 4):
+        if steps[level - 1] > 1:
+            st = torch.where(lvl == level, torch.full_like(st, steps[level - 1]), st)
+    tile_hash = ty * 797 + tx  # odd multiplier decorrelates rows
+    return (gid % st) == (tile_hash % st)
+
+
 def compact_table(means2d, conics, rgb, opacities, tiles_touched, rect_min,
                   rect_max, cull_thr, depths):
     """The (16, N) compact attribute table that the expand step reads, live
@@ -133,13 +155,15 @@ def compact_table(means2d, conics, rgb, opacities, tiles_touched, rect_min,
 def build_sorted_instances(
     means2d, conics, rgb, opacities, tiles_touched, rect_min, rect_max,
     cull_thr, depths, grid_x: int, grid_y: int, max_instances: int,
-    tile_px: int, max_live: int | None = None,
+    tile_px: int, max_live: int | None = None, gaze_decim=None,
 ) -> SortedInstances:
     """Depth-sorted CSR instance list and its feature rows.
 
     ``max_instances`` bounds the rect enumeration (every gaussian x
     tile-in-rect pair), ``max_live`` the instances that survive the
-    ellipse cull into the sorted list; ``overflow`` reports either."""
+    ellipse cull into the sorted list; ``overflow`` reports either.
+    ``gaze_decim`` = (gaze_xy (2,), radii (3,), four per-level steps) also
+    drops the instances ``gaze_decimation_keep`` rejects."""
     if max_live is None:
         max_live = max_instances
     max_live = min(max_live, max_instances)
@@ -170,6 +194,10 @@ def build_sorted_instances(
     ty = miny + r // w_r
     kept = valid & _tile_ellipse_kept(
         tx, ty, x16[4], x16[5], x16[6], x16[7], x16[8], x16[9], tile_px)
+    if gaze_decim is not None:
+        gxy, g_radii, g_steps = gaze_decim
+        kept = kept & gaze_decimation_keep(
+            tx, ty, x16[14].to(torch.int64), gxy, g_radii, tuple(g_steps), tile_px)
     tile_id = torch.where(kept, ty * grid_x + tx, torch.full_like(tx, num_tiles))
 
     n_live_total = kept.sum()

@@ -1,15 +1,21 @@
-"""Per-tile alpha compositing, forward (kernel K2) and backward (kernel
-K3), the differentiable splat around them, and image assembly.
+"""Per-tile alpha compositing, forward (kernel K2), the foveated forward
+compositors (K2's AMR variants and K5) and backward (kernel K3), the
+differentiable splat around them, and image assembly.
 
 Port of ``gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py``:
 the constants, ``_feat_soa_from_rows``, the forward tile compositor
-``_fwd_kernel`` (variant stride=1, n_rounds=0, step=1), the backward tile
-compositor ``_bwd_kernel``, ``splat_pallas`` with ``_blend_fwd`` /
-``_blend_bwd`` / ``_segment_reduce_grads`` (as the autograd Function
-``Splat``), ``_assemble_tiles`` and ``render_tiles_pallas``. On CUDA
-tensors ``blend_fwd`` and ``blend_bwd`` launch ``csrc/blend_fwd.cu`` and
-``csrc/blend_bwd.cu``; on CPU tensors they run ``blend_fwd_plain`` and
-``blend_bwd_plain``.
+``_fwd_kernel`` with ``_blend_stream_loop`` (``blend_fwd``: stride=1,
+n_rounds=0, step=1; ``blend_round``: one AMR round's stride-2 subgrid, as
+``blend_round_pallas``; ``blend_levels``: rounds 1..level per tile with
+per-level decimation and ``scale_only``, as ``_fwd_levels_kernel`` /
+``blend_levels_fused_pallas``, which also carries the ``n_rounds`` /
+``step`` variants), the backward tile compositor ``_bwd_kernel``,
+``splat_pallas`` with ``_blend_fwd`` / ``_blend_bwd`` /
+``_segment_reduce_grads`` (as the autograd Function ``Splat``),
+``_assemble_tiles`` and ``render_tiles_pallas``. On CUDA tensors
+``blend_fwd``, ``blend_round`` / ``blend_levels`` and ``blend_bwd`` launch
+``csrc/blend_fwd.cu``, ``csrc/blend_amr.cu`` and ``csrc/blend_bwd.cu``; on
+CPU tensors they run the ``*_plain`` versions.
 
 Semantics shared by both versions (and the TPU kernels):
 
@@ -21,7 +27,10 @@ Semantics shared by both versions (and the TPU kernels):
   power <= 0 and alpha_raw >= 1/255;
 - transmittance in log space: w = alpha * exp(logT + exclusive prefix of
   log(1-alpha)), logT += the chunk's sum;
-- after each whole chunk the TILE exits once max(logT) < ln 1e-4;
+- after each whole chunk the TILE exits once max(logT) < ln 1e-4, the
+  max over every row the tile renders (all rounds of a foveated tile);
+- foveated decimation: a tile's stream may run every step-th chunk with
+  its log(1-alpha) scaled (see ``_stream_plain``);
 - forward output (T, P, 8) per pixel: rgb (no background), exp(logT),
   chunks_done, logT, 0, 0;
 - backward: chunks replayed back to front from the forward's logT (never
@@ -71,6 +80,19 @@ BLEND_BWD = backend.CudaKernel(
      ctypes.c_void_p],
 )
 
+BLEND_ROUND = backend.CudaKernel(
+    "blend_round", "blend_amr", "blend_round_launch",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+)
+
+BLEND_LEVELS = backend.CudaKernel(
+    "blend_levels", "blend_amr", "blend_levels_launch",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+)
+
 # tiles composited together by the plain versions (bounds their (B, P,
 # chunk) temporaries to ~134 MB / ~34 MB each at P = 1024, chunk = 128)
 _PLAIN_TILE_BATCH = 256
@@ -86,22 +108,43 @@ def feat_soa_from_rows(feat_rows: torch.Tensor, chunk: int) -> torch.Tensor:
     return torch.nn.functional.pad(feat_rows, (0, pad, 0, FEAT - feat_rows.shape[0]))
 
 
-def _chunk_ranges(offsets: torch.Tensor, chunk: int):
+def _chunk_ranges(offsets: torch.Tensor, chunk: int, counts: torch.Tensor | None = None):
+    """Per tile: range start o, instance count n (``counts`` where given,
+    else the CSR range's length), aligned chunk start and chunk count."""
     o = offsets[:-1].to(torch.int64)
-    n = offsets[1:].to(torch.int64) - o
+    n = offsets[1:].to(torch.int64) - o if counts is None else counts.to(torch.int64)
     start = (o // chunk) * chunk
     n_chunks = torch.where(n > 0, (o + n - start + chunk - 1) // chunk,
                            torch.zeros_like(n))
     return o, n, start, n_chunks
 
 
-def _tile_pixels(t: torch.Tensor, grid_x: int, tile: int):
-    """(B, tile*tile) float32 pixel coordinates of tiles ``t``, row-major
-    within each tile."""
-    pix = torch.arange(tile * tile, device=t.device)
-    px = ((t % grid_x) * tile)[:, None] + (pix % tile)[None, :]
-    py = ((t // grid_x) * tile)[:, None] + (pix // tile)[None, :]
+def _tile_pixels(t: torch.Tensor, grid_x: int, tile: int, stride: int = 1,
+                 offx: int = 0, offy: int = 0):
+    """(B, (tile/stride)^2) float32 pixel coordinates of tiles ``t``: the
+    subgrid x = ox + stride*i + offx, y = oy + stride*j + offy, row-major.
+    stride 1 is the whole tile; stride 2 with a cell offset is an AMR
+    round. Port of ``_pixel_coords``."""
+    pw = tile // stride
+    pix = torch.arange(pw * pw, device=t.device)
+    px = ((t % grid_x) * tile)[:, None] + ((pix % pw) * stride + offx)[None, :]
+    py = ((t // grid_x) * tile)[:, None] + ((pix // pw) * stride + offy)[None, :]
     return px.to(torch.float32), py.to(torch.float32)
+
+
+# AMR round r (1..4) -> its pixel's offset in each 2x2 cell: (0,0), (1,1),
+# (1,0), (0,1)
+ROUND_OFFX = (0, 1, 1, 0)
+ROUND_OFFY = (0, 1, 0, 1)
+
+
+def _tile_pixels_rounds(t: torch.Tensor, grid_x: int, tile: int, n_rounds: int):
+    """Rounds 1..n_rounds' stride-2 subgrids stacked on the pixel axis:
+    round r+1 in columns [r*sub, (r+1)*sub), sub = (tile/2)^2. Port of
+    ``_pixel_coords_rounds``."""
+    parts = [_tile_pixels(t, grid_x, tile, 2, ROUND_OFFX[r], ROUND_OFFY[r])
+             for r in range(n_rounds)]
+    return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
 
 
 def _alpha_terms(f, valid, px, py):
@@ -143,45 +186,76 @@ def blend_fwd_plain(feat_soa: torch.Tensor, offsets: torch.Tensor,
     it, over the chunks the tiles run: "lanes", the (pixel, in-range
     instance) pairs; "exp_lanes", those of them with power <= 0; "kept",
     the pairs that pass the alpha gate."""
-    dev = feat_soa.device
     num_tiles = grid_x * grid_y
-    pixels = tile * tile
-    kp = feat_soa.shape[1]
-    out = torch.zeros((num_tiles, pixels, OUTC), dtype=torch.float32, device=dev)
-    o_all, n_all, start_all, nch_all = _chunk_ranges(offsets, chunk)
-    lane = torch.arange(chunk, device=dev)
+    out = torch.zeros((num_tiles, tile * tile, OUTC), dtype=torch.float32,
+                      device=feat_soa.device)
+    ranges = _chunk_ranges(offsets, chunk)
     for b0 in range(0, num_tiles, _PLAIN_TILE_BATCH):
-        t = torch.arange(b0, min(b0 + _PLAIN_TILE_BATCH, num_tiles), device=dev)
-        o, n, start, nch = o_all[t], n_all[t], start_all[t], nch_all[t]
-        px, py = _tile_pixels(t, grid_x, tile)
-        nb = t.shape[0]
-        log_t = torch.zeros((nb, pixels), dtype=torch.float32, device=dev)
-        rgb = torch.zeros((nb, pixels, 3), dtype=torch.float32, device=dev)
-        done = torch.zeros(nb, dtype=torch.int64, device=dev)
-        alive = nch > 0
-        for ci in range(int(nch.max()) if nb else 0):
-            run = alive & (ci < nch)
-            if not bool(run.any()):
-                break
-            ids = start[:, None] + ci * chunk + lane[None, :]  # (B, C)
-            f = feat_soa[:9, ids.clamp_max(kp - 1)]  # (9, B, C)
-            valid = run[:, None] & (ids >= o[:, None]) & (ids < (o + n)[:, None])
-            _, _, power, alpha_raw, keep, alpha = _alpha_terms(f, valid, px, py)
-            if work is not None:
-                _count_work(work, valid, power, keep, pixels)
-            lom = torch.log(1.0 - alpha)
-            csum = torch.cumsum(lom, dim=-1)
-            excl = torch.nn.functional.pad(csum[..., :-1], (1, 0))
-            w = alpha * torch.exp(log_t[..., None] + excl)
-            rgb = rgb + torch.bmm(w, f[5:8].permute(1, 2, 0))
-            log_t = log_t + csum[..., -1]
-            done = done + run.to(torch.int64)
-            alive = run & ~(log_t.max(dim=-1).values < LOG_T_MIN)
-        out[t, :, 0:3] = rgb
-        out[t, :, 3] = torch.exp(log_t)
-        out[t, :, 4] = done[:, None].to(torch.float32)
-        out[t, :, 5] = log_t
+        t = torch.arange(b0, min(b0 + _PLAIN_TILE_BATCH, num_tiles), device=feat_soa.device)
+        _stream_plain(feat_soa, [r[t] for r in ranges], *_tile_pixels(t, grid_x, tile),
+                      chunk, out, t, work=work)
     return out
+
+
+def _stream_plain(feat_soa, ranges, px, py, chunk, out, t, step=1, scale_only=False,
+                  work=None, amr_work=False):
+    """Composite the tiles ``t`` (ranges = their o, n, start, n_chunks) at
+    pixels px, py (B, P) and write rows [0, P) of ``out[t]``: rgb,
+    exp(logT), chunks run, logT. The chunk loop of the module docstring,
+    with ``_blend_stream_loop``'s decimation: ``step`` > 1 runs every
+    step-th chunk, ceil(n_chunks/step) of them, each standing in for rep =
+    min(step, n_chunks - ci*step) chunks (log(1-alpha) scaled by rep, alpha
+    = 1 - exp of it where rep > 1); with ``scale_only`` every chunk runs
+    and every log(1-alpha) is scaled by ``step``. ``amr_work`` also counts
+    "staged" (in-range instances staged, one log of opacity each) and
+    "rescaled" (kept pairs whose alpha is recomputed)."""
+    dev = feat_soa.device
+    kp = feat_soa.shape[1]
+    pixels = px.shape[1]
+    o, n, start, nch_full = ranges
+    decimate = step > 1 and not scale_only
+    dma_step = step if decimate else 1
+    nch = (nch_full + step - 1) // step if decimate else nch_full
+    lane = torch.arange(chunk, device=dev)
+    nb = px.shape[0]
+    log_t = torch.zeros((nb, pixels), dtype=torch.float32, device=dev)
+    rgb = torch.zeros((nb, pixels, 3), dtype=torch.float32, device=dev)
+    done = torch.zeros(nb, dtype=torch.int64, device=dev)
+    alive = nch > 0
+    for ci in range(int(nch.max()) if nb else 0):
+        run = alive & (ci < nch)
+        if not bool(run.any()):
+            break
+        ids = start[:, None] + ci * dma_step * chunk + lane[None, :]  # (B, C)
+        f = feat_soa[:9, ids.clamp_max(kp - 1)]  # (9, B, C)
+        valid = run[:, None] & (ids >= o[:, None]) & (ids < (o + n)[:, None])
+        _, _, power, alpha_raw, keep, alpha = _alpha_terms(f, valid, px, py)
+        if work is not None:
+            _count_work(work, valid, power, keep, pixels)
+        lom = torch.log(1.0 - alpha)
+        rescaled = None
+        if step > 1:  # this chunk's lanes each stand in for rep instances
+            rep = (torch.full_like(nch_full, step) if scale_only
+                   else torch.clamp_max(nch_full - ci * step, step))
+            rep = rep.to(torch.float32)[:, None, None]
+            lom = lom * rep
+            alpha = torch.where(rep > 1, 1.0 - torch.exp(lom), alpha)
+            rescaled = keep & (rep > 1)
+        if work is not None and amr_work:
+            work["staged"] = work.get("staged", 0) + int(valid.sum())
+            work["rescaled"] = work.get("rescaled", 0) + (
+                0 if rescaled is None else int(rescaled.sum()))
+        csum = torch.cumsum(lom, dim=-1)
+        excl = torch.nn.functional.pad(csum[..., :-1], (1, 0))
+        w = alpha * torch.exp(log_t[..., None] + excl)
+        rgb = rgb + torch.bmm(w, f[5:8].permute(1, 2, 0))
+        log_t = log_t + csum[..., -1]
+        done = done + run.to(torch.int64)
+        alive = run & ~(log_t.max(dim=-1).values < LOG_T_MIN)
+    out[t, :pixels, 0:3] = rgb
+    out[t, :pixels, 3] = torch.exp(log_t)
+    out[t, :pixels, 4] = done[:, None].to(torch.float32)
+    out[t, :pixels, 5] = log_t
 
 
 def blend_fwd(feat_soa: torch.Tensor, offsets: torch.Tensor, grid_x: int,
@@ -205,6 +279,135 @@ def blend_fwd(feat_soa: torch.Tensor, offsets: torch.Tensor, grid_x: int,
         BLEND_FWD(feat_soa.data_ptr(), feat_soa.shape[1], offsets.data_ptr(),
                   num_tiles, grid_x, out.data_ptr(), backend.stream_ptr(feat_soa))
     return out
+
+
+def blend_round_plain(feat_soa: torch.Tensor, offsets: torch.Tensor, grid_x: int,
+                      grid_y: int, *, offx: int, offy: int,
+                      counts_override: torch.Tensor | None = None, tile: int = TILE,
+                      chunk: int = CHUNK, work: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch compositing of one AMR round: each tile's stride-2
+    subgrid at cell offset (offx, offy), rows in row-major subgrid order.
+    ``counts_override`` (T,) replaces the CSR range lengths (0 skips a
+    tile). Returns (T, (tile/2)^2, OUTC) as ``blend_fwd_plain`` lays it
+    out. Port of ``blend_round_pallas`` (``_fwd_call`` with stride=2)."""
+    num_tiles = grid_x * grid_y
+    out = torch.zeros((num_tiles, (tile // 2) ** 2, OUTC), dtype=torch.float32,
+                      device=feat_soa.device)
+    ranges = _chunk_ranges(offsets, chunk, counts_override)
+    for b0 in range(0, num_tiles, _PLAIN_TILE_BATCH):
+        t = torch.arange(b0, min(b0 + _PLAIN_TILE_BATCH, num_tiles), device=feat_soa.device)
+        _stream_plain(feat_soa, [r[t] for r in ranges],
+                      *_tile_pixels(t, grid_x, tile, 2, offx, offy), chunk, out, t,
+                      work=work, amr_work=True)
+    return out
+
+
+def blend_levels_plain(feat_soa: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor,
+                       levels: torch.Tensor, grid_x: int, grid_y: int, *,
+                       decimation=(1, 1, 1, 1), scale_only: bool = False,
+                       tile: int = TILE, chunk: int = CHUNK,
+                       work: dict | None = None) -> torch.Tensor:
+    """Plain PyTorch fused foveated compositing: a tile at level L in 1..4
+    composites rounds 1..L in one pass over its instances (``counts`` of
+    them from its offset), its stream decimated by ``decimation[L-1]`` (see
+    ``_stream_plain``; ``scale_only`` for a stream that binning already
+    thinned). Returns (T, 4*sub, OUTC), sub = (tile/2)^2: rows [r*sub,
+    (r+1)*sub) hold round r+1 for r < L, columns rgb, final_T, chunks run,
+    logT; rows above the tile's level are zero. Port of
+    ``blend_levels_fused_pallas`` as its interpret path computes it."""
+    num_tiles = grid_x * grid_y
+    out = torch.zeros((num_tiles, 4 * (tile // 2) ** 2, OUTC), dtype=torch.float32,
+                      device=feat_soa.device)
+    ranges = _chunk_ranges(offsets, chunk, counts)
+    for lvl in range(1, 5):
+        tiles = torch.nonzero(levels == lvl).flatten()
+        for b0 in range(0, tiles.shape[0], _PLAIN_TILE_BATCH):
+            t = tiles[b0:b0 + _PLAIN_TILE_BATCH]
+            _stream_plain(feat_soa, [r[t] for r in ranges],
+                          *_tile_pixels_rounds(t, grid_x, tile, lvl), chunk, out, t,
+                          step=int(decimation[lvl - 1]), scale_only=scale_only,
+                          work=work, amr_work=True)
+    return out
+
+
+def _check_amr_inputs(feat_soa, offsets, counts, num_tiles, levels=None):
+    for name, x, dtype in (("feat_soa", feat_soa, torch.float32),
+                           ("offsets", offsets, torch.int32),
+                           ("counts", counts, torch.int32),
+                           ("levels", levels, torch.int32)):
+        if x is not None:
+            backend.check_cuda_tensor(name, x, dtype)
+    if feat_soa.shape[0] != FEAT or feat_soa.shape[1] % CHUNK:
+        raise ValueError(f"feat_soa shape {tuple(feat_soa.shape)} is not "
+                         f"({FEAT}, multiple of {CHUNK})")
+    if offsets.shape != (num_tiles + 1,):
+        raise ValueError(f"offsets shape {tuple(offsets.shape)} != ({num_tiles + 1},)")
+    for name, x in (("counts", counts), ("levels", levels)):
+        if x is not None and x.shape != (num_tiles,):
+            raise ValueError(f"{name} shape {tuple(x.shape)} != ({num_tiles},)")
+
+
+def blend_round(feat_soa: torch.Tensor, offsets: torch.Tensor, grid_x: int, grid_y: int,
+                *, offx: int, offy: int,
+                counts_override: torch.Tensor | None = None) -> torch.Tensor:
+    """One AMR round on TILE x TILE tiles: inputs as ``blend_fwd`` takes
+    them, the cell offset, and optional per-tile counts (int, (T,)).
+    Returns (T, (TILE/2)^2, OUTC); see ``blend_round_plain``."""
+    if counts_override is None:
+        counts = (offsets[1:] - offsets[:-1]).to(torch.int32)
+    else:
+        counts = counts_override.to(torch.int32).contiguous()
+    if feat_soa.device.type == "cpu":
+        return blend_round_plain(feat_soa, offsets, grid_x, grid_y, offx=offx, offy=offy,
+                                 counts_override=counts)
+    num_tiles = grid_x * grid_y
+    _check_amr_inputs(feat_soa, offsets, counts, num_tiles)
+    if offx not in (0, 1) or offy not in (0, 1):
+        raise ValueError(f"cell offset ({offx}, {offy}) is not in {{0, 1}}^2")
+    out = torch.empty((num_tiles, (TILE // 2) ** 2, OUTC), dtype=torch.float32,
+                      device=feat_soa.device)
+    if num_tiles > 0:
+        BLEND_ROUND(feat_soa.data_ptr(), feat_soa.shape[1], offsets.data_ptr(),
+                    counts.data_ptr(), num_tiles, grid_x, offx, offy, out.data_ptr(),
+                    backend.stream_ptr(feat_soa))
+    return out
+
+
+def blend_levels(feat_soa: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor,
+                 levels: torch.Tensor, grid_x: int, grid_y: int, *,
+                 decimation=(1, 1, 1, 1), scale_only: bool = False) -> torch.Tensor:
+    """Fused foveated compositing on TILE x TILE tiles, one pass per tile
+    over rounds 1..level: inputs as ``blend_fwd`` takes them plus per-tile
+    counts and levels (int, (T,)) and four per-level decimation steps.
+    Returns (T, 4*(TILE/2)^2, OUTC); see ``blend_levels_plain``."""
+    counts = counts.to(torch.int32).contiguous()
+    levels = levels.to(torch.int32).contiguous()
+    decimation = tuple(int(d) for d in decimation)
+    if len(decimation) != 4 or min(decimation) < 1:
+        raise ValueError(f"decimation {decimation} is not four steps >= 1")
+    if feat_soa.device.type == "cpu":
+        return blend_levels_plain(feat_soa, offsets, counts, levels, grid_x, grid_y,
+                                  decimation=decimation, scale_only=scale_only)
+    num_tiles = grid_x * grid_y
+    _check_amr_inputs(feat_soa, offsets, counts, num_tiles, levels)
+    out = torch.empty((num_tiles, 4 * (TILE // 2) ** 2, OUTC), dtype=torch.float32,
+                      device=feat_soa.device)
+    if num_tiles > 0:
+        BLEND_LEVELS(feat_soa.data_ptr(), feat_soa.shape[1], offsets.data_ptr(),
+                     counts.data_ptr(), levels.data_ptr(), num_tiles, grid_x, *decimation,
+                     int(scale_only), out.data_ptr(), backend.stream_ptr(feat_soa))
+    return out
+
+
+def blend_rounds_fused(feat_soa: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor,
+                       n_rounds: int, grid_x: int, grid_y: int) -> torch.Tensor:
+    """Rounds 1..n_rounds of every tile in one pass (``counts`` gates the
+    tiles): ``blend_levels`` with every level n_rounds. Returns (T,
+    n_rounds*(TILE/2)^2, OUTC). Port of ``blend_rounds_fused_pallas``."""
+    levels = torch.full((grid_x * grid_y,), n_rounds, dtype=torch.int32,
+                        device=feat_soa.device)
+    out = blend_levels(feat_soa, offsets, counts, levels, grid_x, grid_y)
+    return out[:, :n_rounds * (TILE // 2) ** 2]
 
 
 def _suffix_incl(x: torch.Tensor) -> torch.Tensor:

@@ -38,8 +38,6 @@ def main():
     from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
     from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning, blend, expand
     from gaussian_splatting_with_eye_tracking_tpu_torch.ops import projection
-    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import transforms as tf
-    from gaussian_splatting_with_eye_tracking_tpu_torch.scene.cameras import MiniCam
 
     backend.build_kernels()
     dev = torch.device("cuda")
@@ -47,7 +45,7 @@ def main():
     params = gm.params_from_jax(raw)
     state = gm.state_from_params(params, 3)
     bg = torch.zeros(3, device=dev)
-    cam = cs.view_request(tf, MiniCam, 0.0, 0.0).params()
+    cam = cs.view_request(0.0, 0.0).params()
     render = train_lib.make_eval_render(3, cs.W, cs.H, max_instances=cs.MAX_INSTANCES,
                                         max_live=cs.MAX_LIVE)
     gx, gy = -(-cs.W // 32), -(-cs.H // 32)

@@ -39,14 +39,12 @@ def main():
     from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
     from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
     from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, segsum
-    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import transforms as tf
-    from gaussian_splatting_with_eye_tracking_tpu_torch.scene.cameras import MiniCam
 
     backend.build_kernels()
     dev = torch.device("cuda")
     params = gm.params_from_jax(cs.raw_params(*cs.make_scene(cs.N)))
     bg = torch.zeros(3, device=dev)
-    cam = cs.view_request(tf, MiniCam, 0.0, 0.0).params()
+    cam = cs.view_request(0.0, 0.0).params()
     render = train_lib.make_eval_render(3, cs.W, cs.H, max_instances=cs.MAX_INSTANCES,
                                         max_live=cs.MAX_LIVE)
     target = render(gm.state_from_params(params, 3), *train_lib.camera_arrays(cam), bg)

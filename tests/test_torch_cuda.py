@@ -9,21 +9,22 @@ expand is held bit-exact on every slot; the forward compositor to atol
 with ``chunks_done`` equal; the backward compositor per gradient row to
 1e-4 of the row's largest value plus 1e-3 of each value, and exactly 0
 past ``chunks_done``; the segment sum to 1e-5 of each row's largest
-value; the whole render, its gradients and a train step on the card
-against the same on the CPU (forward atol 3e-4 / rtol 1e-3 with the
-integer outputs exact; gradients atol 2e-3 / rtol 5e-3, the tolerance of
-tests/test_pallas_blend.py's gradient tests)."""
+value; the foveated compositors (each AMR round, the levels kernel in
+every decimation mode) to atol 1e-4 on rgb/final_T with chunks run equal;
+the whole render, its gradients, a train step, a fused foveated frame and
+RITnet on the card against the same on the CPU (forward atol 3e-4 / rtol
+1e-3 with the integer outputs exact; gradients atol 2e-3 / rtol 5e-3, the
+tolerance of tests/test_pallas_blend.py's gradient tests; RITnet logits
+within 1e-3 of their largest magnitude)."""
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke as cs
-from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning, blend, expand, segsum
+from gaussian_splatting_with_eye_tracking_tpu_torch.ops import amr, binning, blend, expand, segsum
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import rasterize as trast
-from gaussian_splatting_with_eye_tracking_tpu_torch.ops import transforms as tf
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops.projection import preprocess
-from gaussian_splatting_with_eye_tracking_tpu_torch.scene.cameras import MiniCam
 from tests.torch_helpers import to_torch
 
 pytestmark = pytest.mark.cuda
@@ -37,7 +38,7 @@ def random_scene(n, seed, sh_degree):
 
 def front_camera(width, height, device="cpu"):
     """tests/helpers.make_camera's camera (z = -5, looking down +z)."""
-    return cs.view_request(tf, MiniCam, 0.0, 0.0, width, height).params(device=device)
+    return cs.view_request(0.0, 0.0, width, height).params(device=device)
 
 
 @pytest.fixture
@@ -83,6 +84,88 @@ def test_blend_kernel_matches_plain(dev):
     assert torch.equal(got[..., 4], want[..., 4])
     assert torch.allclose(got[..., 0:4], want[..., 0:4], atol=1e-4, rtol=0)
     assert not got[..., 6:].any()
+
+
+def _foveated_inputs(dev):
+    feat, offsets, gx, gy = _scene_features(dev)
+    counts = (offsets[1:] - offsets[:-1]).to(torch.int32)
+    gen = torch.Generator().manual_seed(5)
+    levels = torch.randint(1, 5, (gx * gy,), generator=gen, dtype=torch.int32).to(dev)
+    return feat, offsets, counts, levels, gx, gy
+
+
+def _assert_rows_match(got, want, rows=None):
+    torch.cuda.synchronize()
+    assert torch.equal(got[..., 4], want[..., 4])
+    if rows is not None:
+        got, want = got[rows], want[rows]
+    assert torch.allclose(got[..., 0:4], want[..., 0:4], atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("rnd", [1, 2, 3, 4])
+def test_round_kernel_matches_plain(dev, rnd):
+    feat, offsets, counts, levels, gx, gy = _foveated_inputs(dev)
+    kw = dict(offx=blend.ROUND_OFFX[rnd - 1], offy=blend.ROUND_OFFY[rnd - 1],
+              counts_override=torch.where(levels >= rnd, counts, 0))
+    before = blend.BLEND_ROUND.launches
+    got = blend.blend_round(feat, offsets, gx, gy, **kw)
+    want = blend.blend_round_plain(feat, offsets, gx, gy, **kw)
+    assert blend.BLEND_ROUND.launches == before + 1
+    assert got.shape == (gx * gy, 256, 8) and (want[:, 0, 4] > 1).any()
+    _assert_rows_match(got, want)
+
+
+@pytest.mark.parametrize("decimation,scale_only", [((1, 1, 1, 1), False),
+                                                   ((4, 2, 1, 1), False),
+                                                   ((4, 2, 1, 1), True),
+                                                   ((2, 2, 2, 2), False)])
+def test_levels_kernel_matches_plain(dev, decimation, scale_only):
+    feat, offsets, counts, levels, gx, gy = _foveated_inputs(dev)
+    kw = dict(decimation=decimation, scale_only=scale_only)
+    before = blend.BLEND_LEVELS.launches
+    got = blend.blend_levels(feat, offsets, counts, levels, gx, gy, **kw)
+    want = blend.blend_levels_plain(feat, offsets, counts, levels, gx, gy, **kw)
+    assert blend.BLEND_LEVELS.launches == before + 1
+    rows = (torch.arange(1024, device=dev)[None, :] // 256) < levels[:, None]
+    _assert_rows_match(got, want, rows)
+    assert not got[~rows].any()
+
+
+def test_fused_frame_card_matches_cpu(dev):
+    """The gaze-driven fused frame and the 5-step frame of a small scene
+    on the card and on the CPU."""
+    g = random_scene(2000, seed=4, sh_degree=3)
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    kw = dict(max_instances=1 << 15, gaze_xy=torch.tensor([80.0, 48.0]),
+              gaze_radii=torch.tensor([24.0, 48.0, 80.0]))
+    for fn, extra in ((amr.render_amr_fused, dict(decimation=(4, 2, 1, 1))),
+                      (amr.render_amr_fused, dict(decimation=(4, 2, 1, 1), predecimate=True)),
+                      (amr.render_amr, {})):
+        want, ws = fn(*g, 3, front_camera(160, 96), bg, **kw, **extra)
+        got, gs = fn(*(x.to(dev) for x in g), 3, front_camera(160, 96, dev), bg.to(dev),
+                     **{k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in kw.items()},
+                     **extra)
+        assert torch.allclose(got.cpu(), want, atol=3e-4, rtol=1e-3)
+        for name in ("tile_levels", "offsets", "num_instances", "overflow"):
+            assert torch.equal(getattr(gs, name).cpu(), getattr(ws, name)), name
+        assert len(set(ws.tile_levels.tolist())) >= 3
+
+
+def test_ritnet_card_matches_cpu(dev):
+    from gaussian_splatting_with_eye_tracking_tpu_torch import track_render
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet
+
+    eye = cs.make_eye(height=96, width=128)
+    models = {d: ritnet.load_pretrained(device=d) for d in ("cpu", dev)}
+    x = ritnet.preprocess_eye_image(eye, device="cpu")
+    with torch.no_grad():
+        want, got = (models[d](x.to(d)).cpu() for d in ("cpu", dev))
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+    (uv, pred), (uv_c, pred_c) = (track_render.estimate_gaze(eye, models[d], device=d)
+                                  for d in (dev, "cpu"))
+    assert (pred.cpu() != pred_c).float().mean() <= 1e-3
+    assert np.abs((uv - uv_c) * np.array([128, 96])).max() <= 1.0
+    assert torch.backends.cudnn.allow_tf32 is False  # the backend's setting
 
 
 def _saturated_tile(dev):

@@ -12,10 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from gaussian_splatting_with_eye_tracking_tpu_torch import backend, train_lib
+from gaussian_splatting_with_eye_tracking_tpu_torch import backend, fps_foveated, track_render
+from gaussian_splatting_with_eye_tracking_tpu_torch import train_lib
 from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as tgm
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import ply_io as tply
+from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, expand, segsum
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import rasterize as trast
 from gaussian_splatting_with_eye_tracking_tpu_torch.scene.cameras import MiniCam
@@ -41,10 +43,11 @@ def _forbidden(module: str) -> bool:
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke"])
 def test_no_jax_imports(target):
+    """Nor does the package import the smoke script above it."""
     files = sorted(PORT.rglob("*.py")) if target == "package" else [ROOT / "chip_smoke.py"]
     assert files and all(f.exists() for f in files)
-    bad = [(str(f.relative_to(ROOT)), m) for f in files
-           for m in _imported_modules(f) if _forbidden(m)]
+    bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
+           if _forbidden(m) or (target == "package" and m.split(".")[0] == "chip_smoke")]
     assert not bad, bad
 
 
@@ -77,6 +80,36 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert backend.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_foveated_entry_points_raise_without_cuda(no_cuda):
+    """RITnet's loader and preprocessing, estimate_gaze and the foveated
+    timing run on the card unless told otherwise; with device="cpu" they
+    run on the CPU, and the timing says that it took the host clock."""
+    import chip_smoke as cs
+
+    eye = cs.make_eye(height=64, width=96)
+    g, cam, bg = _small_scene()
+    params = tgm.params_from_jax(
+        {"xyz": g[0], "f_dc": g[4], "f_rest": g[4][:, :, :0], "scaling": g[1].log(),
+         "rotation": g[2], "opacity": torch.logit(g[3])[:, None]}, device="cpu")
+    state = tgm.state_from_params(params, 0)
+    for call in (lambda: ritnet.load_pretrained(),
+                 lambda: ritnet.preprocess_eye_image(eye),
+                 lambda: track_render.estimate_gaze(eye),
+                 lambda: fps_foveated.run_foveated_breakdown(state, cam, bg, max_sh_degree=0),
+                 lambda: fps_foveated.main(["--num_gaussians", "8"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert ritnet.preprocess_eye_image(eye, device="cpu").device.type == "cpu"
+    uv, pred = track_render.estimate_gaze(eye, device="cpu")
+    assert pred.shape == (64, 96) and pred.device.type == "cpu" and ((0 <= uv) & (uv <= 1)).all()
+    out = fps_foveated.run_foveated_breakdown(
+        state, cam, bg, max_sh_degree=0, gaze_xy=torch.tensor([16.0, 16.0]),
+        radii=torch.tensor([8.0, 16.0, 24.0]), max_instances=1 << 10, reps=1, device="cpu")
+    assert out["device"] == "cpu" and out["timer"] == "host clock"
+    assert len(out["steps_ms"]) == 5 and out["plain_ms"] > 0
+    assert sum(out["level_histogram"]) == 1 and "fused_predecimated_ms" in out
 
 
 def _small_scene():
@@ -127,7 +160,8 @@ def test_eval_render_rejects_model_on_other_device():
 
 @pytest.mark.parametrize("kernel,source", [
     (expand.EXPAND_SEG, "expand_seg.cu"), (blend.BLEND_FWD, "blend_fwd.cu"),
-    (blend.BLEND_BWD, "blend_bwd.cu"), (segsum.SEGSUM, "segsum.cu")])
+    (blend.BLEND_BWD, "blend_bwd.cu"), (segsum.SEGSUM, "segsum.cu"),
+    (blend.BLEND_ROUND, "blend_amr.cu"), (blend.BLEND_LEVELS, "blend_amr.cu")])
 def test_kernel_wrappers_bound_to_sources(kernel, source):
     src = backend.CSRC / source
     assert kernel in backend.kernels() and kernel.stem == src.stem
@@ -148,4 +182,22 @@ def test_cpu_calls_use_plain_versions_and_count_nothing():
     fwd = blend.blend_fwd(feat, offsets, 1, 1)
     blend.blend_bwd(feat, offsets, fwd, torch.ones_like(fwd), 1, 1)
     segsum.segment_sum_bounds(table[1:], offsets)
+    assert [k.launches for k in kernels] == before
+
+
+def test_cpu_foveated_calls_use_plain_versions_and_count_nothing():
+    feat = torch.zeros((16, 128))
+    feat[0:2, :40] = torch.rand((2, 40), generator=torch.Generator().manual_seed(0)) * 32
+    feat[2], feat[4], feat[5:8], feat[8] = 0.05, 0.05, 0.7, 0.5
+    offsets = torch.tensor([0, 40], dtype=torch.int32)
+    counts = torch.tensor([40], dtype=torch.int32)
+    levels = torch.tensor([3], dtype=torch.int32)
+    kernels = (blend.BLEND_ROUND, blend.BLEND_LEVELS)
+    before = [k.launches for k in kernels]
+    got = blend.blend_round(feat, offsets, 1, 1, offx=1, offy=0)
+    assert torch.equal(got, blend.blend_round_plain(feat, offsets, 1, 1, offx=1, offy=0))
+    got = blend.blend_levels(feat, offsets, counts, levels, 1, 1, decimation=(4, 2, 1, 1))
+    assert torch.equal(got, blend.blend_levels_plain(feat, offsets, counts, levels, 1, 1,
+                                                     decimation=(4, 2, 1, 1)))
+    assert got[0, :768, 0:3].any() and not got[0, 768:].any()
     assert [k.launches for k in kernels] == before
