@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, eye-tracked foveated serving and
-training paths on one CUDA card and check them.
+training paths, and its train -> render -> metrics CLIs, on one CUDA card
+and check them.
 
 Run from the repository root, with no arguments:
 
@@ -19,7 +20,10 @@ Phases (any failure raises and the script exits non-zero):
     after, and each kernel must have run once per request;
  5. on the front view's real inputs, hold each kernel against its plain
     PyTorch version (expand bit-exact; blend rgb/final_T within 1e-3 and
-    chunks_done equal on all but 0.1% of tiles);
+    chunks_done equal on all but 0.1% of tiles); the index expand (K6,
+    which no path of the package calls) along the segment expand's own
+    slot -> column map, bit-exact against its plain version and against
+    the segment expand's output;
  6. time each view and each kernel with CUDA events (warm-up, then the
     median of 10), beside the plain versions and the library yardstick;
  7. eye tracking: draw a synthetic 640x400 eye (seed 0, pupil at gaze uv
@@ -57,7 +61,18 @@ Phases (any failure raises and the script exits non-zero):
     row's largest value plus 1e-3 of each value, and exactly 0 on chunks
     past chunks_done; segsum within 1e-5 of the row's largest value), and
     time the train step, its phases, its peak memory and the kernels;
-14. print a ``{"kernels": [...]}`` line, then as the last line
+14. the CLIs on a synthesized COLMAP scene (train_regression_r04's: 24
+    cameras at 256x256, GT rendered from a 3000-gaussian mixture), in one
+    process through each module's ``main``: ``train`` for 1000 steps with
+    the default OptimizationConfig (densify from 500 every 100, SH
+    annealing, adaptive capacity) and evaluations at 500 and 1000,
+    ``render``, ``metrics``. Every loss finite (the trainer raises
+    otherwise); test PSNR at 1000 >= 18 dB and above the one at 500;
+    ``blend_bwd`` and ``segsum`` launched at least 1000 times and
+    ``expand_seg`` / ``blend_fwd`` more; 3 test renders of 256x256;
+    results.json's PSNR within 0.2 dB of the trainer's at 1000 (PNG
+    quantisation); the checkpoint loads back bit for bit;
+15. print a ``{"kernels": [...]}`` line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
@@ -95,12 +110,17 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 REPLACES = {
     "expand_seg": "gaussian_splatting_with_eye_tracking_tpu/ops/expand.py:74",
+    "expand_rows": "gaussian_splatting_with_eye_tracking_tpu/ops/expand.py:35",
     "blend_fwd": "gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py:563",
     "blend_bwd": "gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py:600",
     "segsum": "gaussian_splatting_with_eye_tracking_tpu/ops/segsum.py:31",
     "blend_round": "gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py:563",
     "blend_levels": "gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py:1260",
 }
+
+CLI_ITERATIONS = 1000  # steps of the CLI phase's training run
+CLI_PSNR_MIN = 18.0  # dB at 1000; the JAX package read 19.98 there (TRAIN_r05.json)
+TRAIN_R05_POINTS_1000 = 7914  # TRAIN_r05.json's point count at 1000
 
 EYE_H, EYE_W = 400, 640  # the OpenEDS frame that RITnet serves
 EYE_GAZE_UV = (0.55, 0.45)  # where the synthetic eye's pupil sits
@@ -600,6 +620,87 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
     return kernels, summary
 
 
+def cli_phase():
+    """Phase 14: synthesize -> train -> render -> metrics through the
+    modules' ``main``s in a temporary directory. Returns the numbers."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import backend, metrics, render
+    from gaussian_splatting_with_eye_tracking_tpu_torch import scene_synth
+    from gaussian_splatting_with_eye_tracking_tpu_torch import train as train_cli
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import checkpoint as ckpt
+    from gaussian_splatting_with_eye_tracking_tpu_torch.train_regression import run_cli
+    from gaussian_splatting_with_eye_tracking_tpu_torch.utils.image_utils import load_image_chw
+
+    n = CLI_ITERATIONS
+    stages = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_dir, model = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        scene_synth.synthesize_dataset(scene_dir)
+        stages["synthesize_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        for kern in backend.kernels():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        _, state, tlog = run_cli(train_cli.main, [
+            "-s", scene_dir, "-m", model, "--iterations", str(n), "--eval",
+            "--test_iterations", str(n // 2), str(n), "--save_iterations", str(n),
+            "--checkpoint_iterations", str(n), "--disable_viewer", "--quiet"])
+        torch.cuda.synchronize()
+        stages["train_s"] = time.perf_counter() - t0
+        launches = {kern.name: kern.launches for kern in backend.kernels()}
+        t0 = time.perf_counter()
+        run_cli(render.main, ["-m", model, "--iteration", str(n), "--quiet"])
+        stages["render_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results = run_cli(metrics.main, ["-m", model, "--no_lpips"])[model][f"ours_{n}"]
+        stages["metrics_s"] = time.perf_counter() - t0
+
+        renders = os.path.join(model, "test", f"ours_{n}", "renders")
+        shapes = [load_image_chw(os.path.join(renders, f)).shape
+                  for f in sorted(os.listdir(renders))]
+        saved, it = ckpt.load_checkpoint(os.path.join(model, f"chkpnt{n}.ckpt"))
+    a, b = ckpt.state_to_dict(saved), ckpt.state_to_dict(state)
+    pairs = [(a["params"], b["params"]), (a["opt_state"]["mu"], b["opt_state"]["mu"]),
+             (a["opt_state"]["nu"], b["opt_state"]["nu"]),
+             ({k: a[k] for k in ("active", "max_radii2d", "xyz_grad_accum", "denom")},
+              {k: b[k] for k in ("active", "max_radii2d", "xyz_grad_accum", "denom")})]
+    same = (it == n and a["sh_degree"] == b["sh_degree"]
+            and a["opt_state"]["count"] == b["opt_state"]["count"]
+            and all(torch.equal(x[k], y[k]) for x, y in pairs for k in y))
+
+    test = tlog["eval"]["test"]
+    psnr_half, psnr_end = test[n // 2]["psnr"], test[n]["psnr"]
+    points = tlog["points"][n]
+    out = {"iterations": n, "stages_s": stages, "ms_per_iteration": 1e3 * tlog["seconds"] / n,
+           "test_psnr": {str(k): v["psnr"] for k, v in sorted(test.items())},
+           "train_psnr": {str(k): v["psnr"] for k, v in sorted(tlog["eval"]["train"].items())},
+           "points": {str(k): v for k, v in sorted(tlog["points"].items())},
+           "train_r05_points_1000": TRAIN_R05_POINTS_1000, "capacity": tlog["capacity"],
+           "metrics": results, "launches": launches, "renders": [list(s) for s in shapes],
+           "checkpoint_round_trip": same}
+    log(f"CLI phase: stages {json.dumps(stages)}; {out['ms_per_iteration']:.2f} ms per "
+        f"iteration of the train loop ({n} iterations, evaluations included)")
+    log(f"CLI phase: test PSNR {psnr_half:.3f} dB at {n // 2}, {psnr_end:.3f} dB at {n} "
+        f"(TRAIN_r05, JAX: 19.98 at 1000); results.json PSNR {results['PSNR']:.3f}, SSIM "
+        f"{results['SSIM']:.4f}; points at {n}: {points} (TRAIN_r05: "
+        f"{TRAIN_R05_POINTS_1000}); capacity {tlog['capacity']}; launches {launches}")
+    if not (psnr_end >= CLI_PSNR_MIN and psnr_end > psnr_half):
+        raise AssertionError(f"CLI training: test PSNR {psnr_half} at {n // 2}, {psnr_end} at {n}")
+    for name in ("blend_bwd", "segsum"):
+        if launches[name] < n:
+            raise AssertionError(f"CLI training: {name} ran {launches[name]} times in {n} steps")
+    for name in ("expand_seg", "blend_fwd"):
+        if launches[name] <= launches["blend_bwd"]:
+            raise AssertionError(f"CLI training: {name} ran {launches[name]} times")
+    if shapes != [(3, 256, 256)] * 3:
+        raise AssertionError(f"CLI render: test renders {shapes}")
+    if not abs(results["PSNR"] - psnr_end) <= 0.2:
+        raise AssertionError(f"CLI metrics: PSNR {results['PSNR']} vs the trainer's {psnr_end}")
+    if not same:
+        raise AssertionError("CLI checkpoint does not load back equal to the state saved")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -710,6 +811,22 @@ def main() -> int:
         if k1_mismatch:
             raise AssertionError("expand_seg is not bit-exact")
 
+        # K6 along K1's own slot -> column map: the same table by another route
+        seg = table[0].contiguous()
+        slots = torch.arange(MAX_INSTANCES, dtype=torch.float32, device=dev)
+        ck = (torch.searchsorted(seg, slots, right=True) - 1).clamp_(
+            0, table.shape[1] - 1).to(torch.int32)
+        k6 = expand.expand_rows(table, ck)
+        k6_plain = expand.expand_rows_plain(table, ck)
+        torch.cuda.synchronize()
+        k6_mismatch = int((k6 != k6_plain).sum())
+        k6_vs_k1 = int((k6 != k1).sum())
+        k6_err = float((k6 - k6_plain)[finite].abs().max())
+        log(f"expand_rows vs plain: {k6_mismatch} of {k6.numel()} values differ "
+            f"(max |err| {k6_err}); vs expand_seg's output: {k6_vs_k1} differ")
+        if k6_mismatch or k6_vs_k1:
+            raise AssertionError("expand_rows is not bit-exact")
+
         gx, gy = -(-W // 32), -(-H // 32)
         si = binning.build_sorted_instances(*bin_args, gx, gy, MAX_INSTANCES, 32,
                                             max_live=MAX_LIVE)
@@ -735,8 +852,6 @@ def main() -> int:
         view_ms = [cuda_ms(lambda c=c: render(state, *train_lib.camera_arrays(c.params()),
                                               bg, 1.0)) for c in cams]
         log("view ms (median of 10): " + ", ".join(f"{t:.3f}" for t in view_ms))
-        seg = table[0].contiguous()
-        slots = torch.arange(MAX_INSTANCES, dtype=torch.float32, device=dev)
 
         def k1_library():
             ck = (torch.searchsorted(seg, slots, right=True) - 1).clamp_(0, table.shape[1] - 1)
@@ -746,6 +861,9 @@ def main() -> int:
         k1_plain_ms = cuda_ms(lambda: expand.expand_rows_by_segments_plain(
             table, 0, MAX_INSTANCES))
         k1_lib_ms = cuda_ms(k1_library)
+        k6_ms = cuda_ms(lambda: expand.expand_rows(table, ck))
+        k6_plain_ms = cuda_ms(lambda: expand.expand_rows_plain(table, ck))
+        k6_lib_ms = cuda_ms(lambda: table.index_select(1, ck))
         k2_ms = cuda_ms(lambda: blend.blend_fwd(feat_soa, offsets, gx, gy))
         k2_plain_ms = cuda_ms(lambda: blend.blend_fwd_plain(feat_soa, offsets, gx, gy))
 
@@ -755,6 +873,9 @@ def main() -> int:
     live_cols = max(1, int(torch.isfinite(table[0]).sum()))
     k1_bytes = 4 * rows * (MAX_INSTANCES + live_cols)
     k1_bound = k1_bytes / HBM_BYTES_PER_S * 1e3
+    # K6: the same, and ck read once (4 bytes a slot)
+    k6_bytes = k1_bytes + 4 * MAX_INSTANCES
+    k6_bound = k6_bytes / HBM_BYTES_PER_S * 1e3
     # K2, over the chunks the tiles run: per (pixel, in-range instance) pair
     # 10 fp32 flops (offsets, the FMA-chained power, its test); where power
     # <= 0 one exp and 2 flops; per pair that passes the alpha gate a log
@@ -770,6 +891,10 @@ def main() -> int:
     k2_bound_by = max(k2_times, key=k2_times.get)
     log(f"expand_seg: {live_cols} live columns, {k1_bytes / 1e6:.1f} MB moved, "
         f"bound {k1_bound:.4f} ms (bytes)")
+    log(f"expand_rows: {k6_bytes / 1e6:.1f} MB moved, bound {k6_bound:.4f} ms (bytes); "
+        f"{k6_ms:.4f} ms, plain {k6_plain_ms:.4f} ms, index_select {k6_lib_ms:.4f} ms; "
+        f"launches on the main path {launches['expand_rows']} (no path of the package "
+        f"calls it, as in the JAX package)")
     log(f"blend_fwd: {int(chunks.sum())} chunks; pairs in range {lanes}, power <= 0 "
         f"{exp_lanes}, kept {kept}; {k2_sfu} transcendentals "
         f"{k2_sfu / SFU_OPS_PER_S * 1e3:.4f} ms, {k2_flops} fp32 flops "
@@ -815,6 +940,8 @@ def main() -> int:
     train = train_phase(params, cams, images, bg)
     # -- 13. backward kernels vs plain versions, timings ----------------------
     bwd = backward_checks(train["state8"], cams[0], images[0], bg, train["step"])
+    # -- 14. the CLIs on a synthesized COLMAP scene ------------------------------
+    cli = cli_phase()
 
     src = "gaussian_splatting_with_eye_tracking_tpu_torch/csrc/{}.cu"
     kernels = [
@@ -834,12 +961,17 @@ def main() -> int:
          "replaces": REPLACES["segsum"], "launches": train["launches"]["segsum"],
          **bwd["segsum"]},
         *fov_kernels,
+        {"name": "expand_rows", "route": "cuda", "source": src.format("expand_seg"),
+         "replaces": REPLACES["expand_rows"], "launches": launches["expand_rows"],
+         "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms,
+         "bound_ms": k6_bound, "bound_by": "bytes", "library_ms": k6_lib_ms},
     ]
     log(json.dumps({"views_ms": view_ms, "peak_mib": peak_mb, "card": smi}))
     log(json.dumps({"train": {k: train[k] for k in ("losses", "l1", "psnr", "densify",
                                                      "launches", "caps")},
                     "step": bwd["step"], "card": smi}))
     log(json.dumps({"foveated": fov, "eye": eye_info, "card": smi}))
+    log(json.dumps({"cli": cli, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

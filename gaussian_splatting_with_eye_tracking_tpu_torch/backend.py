@@ -58,6 +58,15 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def resolve_data_device(data_device: str) -> torch.device:
+    """The device of a ``ModelConfig.data_device``: "cuda" (or "cuda:N"),
+    which raises without a card, or "cpu". Any other value raises,
+    including the JAX package's "tpu" read back from its ``cfg_args``."""
+    if str(data_device).split(":")[0] not in ("cuda", "cpu"):
+        raise ValueError(f"data_device {data_device!r}: the port runs on 'cuda' or 'cpu'")
+    return resolve_device(data_device)
+
+
 def _nvcc() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
     if cuda_home and (Path(cuda_home) / "bin" / "nvcc").exists():

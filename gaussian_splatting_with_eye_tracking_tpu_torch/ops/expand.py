@@ -1,10 +1,11 @@
-"""Run-length expand of a compact column table by segment starts.
+"""Column expands of a compact table: by segment starts (K1) and along an
+index vector (K6).
 
-Port of ``expand_rows_by_segments`` in
-``gaussian_splatting_with_eye_tracking_tpu/ops/expand.py`` (the TPU kernel
-``_expand_seg_kernel``). On a CUDA tensor it launches the hand-written
-kernel ``csrc/expand_seg.cu``; on a CPU tensor it runs
-``expand_rows_by_segments_plain``. Both are bit-exact copies.
+Port of ``expand_rows_by_segments`` and ``expand_rows`` in
+``gaussian_splatting_with_eye_tracking_tpu/ops/expand.py`` (the TPU kernels
+``_expand_seg_kernel`` and ``_expand_kernel``). On a CUDA tensor each
+launches its hand-written kernel in ``csrc/expand_seg.cu``; on a CPU
+tensor it runs its ``*_plain`` version. All are bit-exact copies.
 """
 
 from __future__ import annotations
@@ -18,6 +19,11 @@ from gaussian_splatting_with_eye_tracking_tpu_torch import backend
 EXPAND_SEG = backend.CudaKernel(
     "expand_seg", "expand_seg", "expand_seg_launch",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+)
+EXPAND_ROWS = backend.CudaKernel(
+    "expand_rows", "expand_seg", "expand_rows_launch",
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
      ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
 )
 
@@ -49,4 +55,32 @@ def expand_rows_by_segments(table: torch.Tensor, seg_row: int, k: int) -> torch.
     if k > 0:
         EXPAND_SEG(table.data_ptr(), c, nc, seg_row, out.data_ptr(), k,
                    backend.stream_ptr(table))
+    return out
+
+
+def expand_rows_plain(table: torch.Tensor, ck: torch.Tensor) -> torch.Tensor:
+    """out (C, K) with out[:, k] = table[:, clamp(ck[k], 0, Nc - 1)]; ck
+    (K,) int32, nondecreasing in every caller (the kernel is correct for
+    any order, only slower)."""
+    return table[:, ck.long().clamp(0, table.shape[1] - 1)]
+
+
+def expand_rows(table: torch.Tensor, ck: torch.Tensor) -> torch.Tensor:
+    """See ``expand_rows_plain``; table (C, Nc) float32, ck (K,) int32.
+    Nothing on the package's paths calls it, as in the JAX package."""
+    if table.device.type == "cpu":
+        return expand_rows_plain(table, ck)
+    backend.check_cuda_tensor("table", table, torch.float32)
+    backend.check_cuda_tensor("ck", ck, torch.int32)
+    if table.dim() != 2 or table.shape[1] == 0 or ck.dim() != 1:
+        raise ValueError(f"expand_rows: bad shapes table {tuple(table.shape)}, "
+                         f"ck {tuple(ck.shape)}")
+    if ck.device != table.device:
+        raise ValueError(f"expand_rows: table on {table.device}, ck on {ck.device}")
+    c, nc = table.shape
+    k = ck.shape[0]
+    out = torch.empty((c, k), dtype=torch.float32, device=table.device)
+    if k > 0:
+        EXPAND_ROWS(table.data_ptr(), c, nc, ck.data_ptr(), out.data_ptr(), k,
+                    backend.stream_ptr(table))
     return out

@@ -1,6 +1,7 @@
 """Minimal PLY reader/writer (binary little-endian + ascii), numpy only.
 
-Port (an own copy) of ``read_ply`` and ``write_ply`` from
+Port (an own copy) of ``read_ply``, ``write_ply``, ``fetch_point_cloud``
+and ``store_point_cloud`` from
 ``gaussian_splatting_with_eye_tracking_tpu/scene/ply.py``; files written by
 either package read back bit-for-bit in the other.
 """
@@ -103,3 +104,37 @@ def write_ply(path: str, fields: Dict[str, np.ndarray]) -> None:
             f.write(f"property {t} {k}\n".encode())
         f.write(b"end_header\n")
         f.write(rec.tobytes())
+
+
+def fetch_point_cloud(path: str):
+    """(points, colors, normals) float32 (N, 3) from a point-cloud PLY;
+    uchar colors scaled to [0, 1] (0.5 gray without colors), zero normals
+    without normals."""
+    v = read_ply(path)
+    pts = np.stack([v["x"], v["y"], v["z"]], axis=-1).astype(np.float32)
+    if "red" in v:
+        colors = np.stack([v["red"], v["green"], v["blue"]], -1).astype(np.float32) / 255.0
+    else:
+        colors = np.full_like(pts, 0.5)
+    if "nx" in v:
+        normals = np.stack([v["nx"], v["ny"], v["nz"]], -1).astype(np.float32)
+    else:
+        normals = np.zeros_like(pts)
+    return pts, colors, normals
+
+
+def store_point_cloud(path: str, xyz: np.ndarray, rgb: np.ndarray) -> None:
+    """Write xyz (float32), zero normals and uchar rgb, as the reference's
+    ``storePly``."""
+    fields = {
+        "x": xyz[:, 0].astype(np.float32),
+        "y": xyz[:, 1].astype(np.float32),
+        "z": xyz[:, 2].astype(np.float32),
+        "nx": np.zeros(len(xyz), np.float32),
+        "ny": np.zeros(len(xyz), np.float32),
+        "nz": np.zeros(len(xyz), np.float32),
+        "red": rgb[:, 0].astype(np.uint8),
+        "green": rgb[:, 1].astype(np.uint8),
+        "blue": rgb[:, 2].astype(np.uint8),
+    }
+    write_ply(path, fields)

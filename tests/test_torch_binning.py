@@ -1,5 +1,7 @@
 """PyTorch port vs JAX package: the run-length expand (plain version of
-kernel K1) bit-exact on every slot, and the fused instance builder on the
+kernel K1) and the index expand (plain version of kernel K6, against JAX's
+``expand_rows`` in interpret mode) bit-exact on every slot, and the fused
+instance-list construction on the
 same preprocessed inputs (integer outputs exact, kept instances'
 ``gauss_id`` and feature rows bit-exact; dead slots may tie in another
 order, so only ``[:num_instances]`` is compared there)."""
@@ -44,6 +46,23 @@ def test_expand_plain_matches_jax(dead_frac):
     assert_equal(texp.expand_rows_by_segments(to_torch(table), 0, k), want)
     if dead_frac == 1.0:  # every column dead: all slots copy column 0
         assert np.isinf(got[0].numpy()).all()
+
+
+@pytest.mark.parametrize("pattern", ["runs", "clamped"])
+def test_expand_rows_plain_matches_jax(pattern):
+    """A nondecreasing ck (each column repeated 1-5 times); "clamped"
+    starts below 0 and ends past the last column."""
+    rng = np.random.default_rng(2)
+    table = rng.normal(size=(16, 300)).astype(np.float32)
+    table[3, 7] = np.inf
+    ck = np.repeat(np.arange(300), rng.integers(1, 6, 300)).astype(np.int32)
+    if pattern == "clamped":
+        ck = np.concatenate([[-5, -1], ck, [300, 412]]).astype(np.int32)
+    want = np.asarray(jexp.expand_rows(jnp.asarray(table), jnp.asarray(ck), interpret=True))
+    got = texp.expand_rows_plain(to_torch(table), to_torch(ck))
+    assert got.shape == (16, ck.shape[0])
+    assert_equal(got, want)
+    assert_equal(texp.expand_rows(to_torch(table), to_torch(ck)), want)
 
 
 def _prep(n, seed):

@@ -1,0 +1,338 @@
+"""The port's train -> render -> metrics CLIs against the JAX package's, on
+the CPU (``--data_device cpu``), at test scale.
+
+- 6 training steps of both packages on the same 4-camera COLMAP scene
+  (densify off, instance capacity 4096 in both, which nothing overflows):
+  equal ``cameras.json`` and active counts; Adam moments within 1e-3 of
+  the field's largest value (rtol 5e-3 for mu, 1e-2 for nu): the train
+  step's 1e-4 holds after one step (measured 2.7e-5), and each later step
+  feeds the parameters' differences back into the gradients (measured
+  2.7e-4 after six); parameters within 6
+  learning-rate steps of their group (Adam's first steps are sign steps,
+  so a gradient at rounding level can move a parameter by a whole step
+  either way) and 99 % of them within atol 1e-5 / rtol 1e-3. The JAX CLI
+  renders through its ``impl="jnp"`` path on the CPU, whose per-pixel
+  stop differs from the chunk exit only in saturated tiles; this scene's
+  opacities start at 0.1.
+- The port's render CLI on the JAX-trained model directory writes PNGs
+  within 1 level of 255 of JAX's render CLI, at most 0.1 % of values at 2.
+- PLY snapshots load unchanged in the other package.
+- A 30-step port CLI run with densify from step 10 writes cfg_args,
+  cameras.json, the PLY and the checkpoint, resumes from the checkpoint,
+  and renders and scores (PSNR > 5); the overflow redo; the failures.
+- LPIPS's arithmetic with seeded random weights within 1e-5 of JAX's.
+"""
+
+import json
+import os
+import shutil
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+import render as jax_render_cli
+import train as jax_train_cli
+from gaussian_splatting_with_eye_tracking_tpu import metrics_lib as jmetrics
+from gaussian_splatting_with_eye_tracking_tpu.config import ModelConfig as JModelConfig
+from gaussian_splatting_with_eye_tracking_tpu.config import OptimizationConfig as JOpt
+from gaussian_splatting_with_eye_tracking_tpu.config import PipelineConfig as JPipe
+from gaussian_splatting_with_eye_tracking_tpu.models import ply_io as jply
+from gaussian_splatting_with_eye_tracking_tpu_torch import metrics, metrics_lib, render, train
+from gaussian_splatting_with_eye_tracking_tpu_torch.config import ModelConfig, OptimizationConfig
+from gaussian_splatting_with_eye_tracking_tpu_torch.models import checkpoint as ckpt
+from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as tgm
+from gaussian_splatting_with_eye_tracking_tpu_torch.models import ply_io as tply
+from gaussian_splatting_with_eye_tracking_tpu_torch.scene.dataset_readers import (
+    detect_and_read_scene,
+)
+from tests.test_scene_io import make_colmap_scene
+from tests.torch_helpers import assert_equal
+
+STEPS = 6
+CAP = 4096  # instance capacity and bucket of the parity runs
+FIELDS = tgm.GaussianParams._fields
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """The suite runs several worker processes on one machine: this file's
+    CPU plain paths keep to two threads so that they do not crowd the
+    other workers out (at 8 threads each, torch's spinning workers
+    oversubscribe the cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def _levels(path):
+    """An 8-bit RGB image file as int (H, W, 3)."""
+    with Image.open(path) as im:
+        assert im.mode == "RGB", path
+        return np.asarray(im).astype(int)
+
+
+def _cli(fn, argv):
+    """A CLI's main with sys.stdout restored after it (the CLIs timestamp
+    or silence it for the rest of the process)."""
+    saved = sys.stdout
+    try:
+        return fn(argv)
+    finally:
+        sys.stdout = saved
+
+
+@pytest.fixture(scope="module")
+def parity(tmp_path_factory):
+    """Both packages trained STEPS steps on one scene; JAX's model dir is
+    also rendered by JAX's CLI (once per module)."""
+    root = make_colmap_scene(str(tmp_path_factory.mktemp("scene")), n_cams=4, n_pts=150)
+    jdir, tdir = (str(tmp_path_factory.mktemp(n)) for n in ("jax_model", "port_model"))
+    common = dict(testing_iterations=[], saving_iterations=[STEPS],
+                  checkpoint_iterations=[STEPS], start_checkpoint=None, quiet=True,
+                  instance_capacity=CAP, capacity_bucket=CAP)
+    _, jstate = jax_train_cli.training(
+        JModelConfig(source_path=root, model_path=jdir, eval=True),
+        JOpt(iterations=STEPS, densify_from_iter=100), JPipe(), **common)
+    _, tstate, log = train.training(
+        ModelConfig(source_path=root, model_path=tdir, eval=True, data_device="cpu"),
+        OptimizationConfig(iterations=STEPS, densify_from_iter=100), **common)
+    rdir = str(tmp_path_factory.mktemp("jax_model_port_render"))
+    shutil.copytree(jdir, rdir, dirs_exist_ok=True)
+    _cli(jax_render_cli.main, ["-m", jdir, "--quiet", "--iteration", str(STEPS)])
+    return dict(root=root, jdir=jdir, tdir=tdir, rdir=rdir, jstate=jstate, tstate=tstate,
+                log=log)
+
+
+def test_training_matches_jax(parity):
+    with open(os.path.join(parity["jdir"], "cameras.json")) as f:
+        want = json.load(f)
+    with open(os.path.join(parity["tdir"], "cameras.json")) as f:
+        assert json.load(f) == want
+    assert len(want) == 4
+    ts, js = parity["tstate"], tgm.state_from_jax(parity["jstate"], device="cpu")
+    assert_equal(ts.active, js.active)
+    assert int(ts.active.sum()) == 150 and ts.opt_state.count == js.opt_state.count == STEPS
+    extent = detect_and_read_scene(parity["root"], eval_split=True).nerf_norm_radius
+    tx = tgm.make_optimizer(OptimizationConfig(), extent)  # xyz's lr scales with the extent
+    for name in FIELDS:
+        mu, nu = getattr(ts.opt_state.mu, name), getattr(ts.opt_state.nu, name)
+        jmu, jnu = getattr(js.opt_state.mu, name), getattr(js.opt_state.nu, name)
+        assert (jmu.abs().max() > 0) == (name != "f_rest"), name  # SH degree 0 for 6 steps
+        torch.testing.assert_close(mu, jmu, atol=1e-3 * float(jmu.abs().max()), rtol=5e-3,
+                                   msg=name)
+        torch.testing.assert_close(nu, jnu, atol=1e-3 * float(jnu.abs().max()), rtol=1e-2,
+                                   msg=name)
+        p, jp = getattr(ts.params, name), getattr(js.params, name)
+        assert float((p - jp).abs().max()) <= 6 * tx.lr(name, 0), name
+        close = (p - jp).abs() <= 1e-5 + 1e-3 * jp.abs()
+        assert float(close.float().mean()) >= 0.99, (name, float(close.float().mean()))
+
+
+def test_render_cli_on_jax_model_matches_jax(parity):
+    """The port renders JAX's model dir (its cfg_args says data_device
+    'tpu', which the command line overrides)."""
+    with pytest.raises(ValueError, match="data_device 'tpu'"):
+        _cli(render.main, ["-m", parity["rdir"], "--quiet", "--iteration", str(STEPS)])
+    _cli(render.main, ["-m", parity["rdir"], "--quiet", "--iteration", str(STEPS),
+                       "--data_device", "cpu"])
+    n = 0
+    for split in ("train", "test"):
+        for kind in ("renders", "gt"):
+            sub = os.path.join(split, f"ours_{STEPS}", kind)
+            names = sorted(os.listdir(os.path.join(parity["jdir"], sub)))
+            assert names == sorted(os.listdir(os.path.join(parity["rdir"], sub)))
+            for fname in names:
+                want = _levels(os.path.join(parity["jdir"], sub, fname))
+                got = _levels(os.path.join(parity["rdir"], sub, fname))
+                diff = np.abs(got - want)
+                assert diff.max() <= 2 and (diff == 2).mean() <= 1e-3, (sub, fname)
+                if kind == "gt":
+                    assert_equal(torch.from_numpy(got), want)
+                n += 1
+    assert n == 8  # 3 train and 1 test view, renders and ground truth
+
+
+def test_ply_snapshots_load_in_both_packages(parity):
+    tply_path = os.path.join(parity["tdir"], "point_cloud", f"iteration_{STEPS}",
+                             "point_cloud.ply")
+    jply_path = os.path.join(parity["jdir"], "point_cloud", f"iteration_{STEPS}",
+                             "point_cloud.ply")
+    ts, js = parity["tstate"], parity["jstate"]
+    for path in (tply_path, jply_path):
+        want, deg = jply.load_gaussians_ply(path)
+        got, tdeg = tply.load_gaussians_ply(path, device="cpu")
+        assert deg == tdeg == 3
+        for name in FIELDS:
+            assert_equal(getattr(got, name), getattr(want, name), msg=name)
+    got, _ = jply.load_gaussians_ply(tply_path)
+    act = ts.active
+    for name in FIELDS:
+        assert_equal(getattr(ts.params, name)[act], getattr(got, name), msg=name)
+    want, _ = tply.load_gaussians_ply(jply_path, device="cpu")
+    jact = np.asarray(js.active)
+    for name in FIELDS:
+        assert_equal(getattr(want, name), np.asarray(getattr(js.params, name))[jact], msg=name)
+
+
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    """A 30-step run of the port's train CLI with densify from step 10."""
+    root = make_colmap_scene(str(tmp_path_factory.mktemp("scene30")), n_cams=8, n_pts=200)
+    model = str(tmp_path_factory.mktemp("model30"))
+    _, _, log = _cli(train.main, [
+        "-s", root, "-m", model, "--iterations", "30", "--test_iterations", "20",
+        "--save_iterations", "30", "--checkpoint_iterations", "30", "--eval",
+        "--disable_viewer", "--quiet", "--densify_from_iter", "10",
+        "--densification_interval", "10", "--data_device", "cpu"])
+    return root, model, log
+
+
+def test_cli_run_writes_its_outputs(cli_run):
+    root, model, log = cli_run
+    for rel in ("cfg_args", "cameras.json", "input.ply", "chkpnt30.ckpt",
+                os.path.join("point_cloud", "iteration_30", "point_cloud.ply")):
+        assert os.path.exists(os.path.join(model, rel)), rel
+    with open(os.path.join(model, "cfg_args")) as f:
+        assert "data_device='cpu'" in f.read()
+    assert set(log["eval"]["test"]) == {20} and set(log["eval"]["train"]) == {20}
+    assert np.isfinite(log["eval"]["test"][20]["psnr"])
+    assert ckpt.latest_checkpoint(model) == os.path.join(model, "chkpnt30.ckpt")
+
+
+def test_cli_resumes_from_checkpoint(cli_run, tmp_path):
+    root, model, _ = cli_run
+    state, it = ckpt.load_checkpoint(os.path.join(model, "chkpnt30.ckpt"), device="cpu")
+    assert it == 30 and state.opt_state.count == 30 and state.sh_degree == 0
+    resumed = str(tmp_path / "resumed")
+    _cli(train.main, ["-s", root, "-m", resumed, "--iterations", "32", "--test_iterations",
+                      "32", "--save_iterations", "32", "--checkpoint_iterations", "32",
+                      "--start_checkpoint", os.path.join(model, "chkpnt30.ckpt"),
+                      "--disable_viewer", "--quiet", "--data_device", "cpu"])
+    state2, it2 = ckpt.load_checkpoint(os.path.join(resumed, "chkpnt32.ckpt"), device="cpu")
+    assert it2 == 32 and state2.opt_state.count == 32
+    assert torch.equal(state2.active, state.active)
+    assert torch.isfinite(state2.params.xyz).all()
+    assert not torch.equal(state2.params.xyz, state.params.xyz)
+
+
+def test_checkpoint_round_trip_is_exact(cli_run, tmp_path):
+    _, model, _ = cli_run
+    state, it = ckpt.load_checkpoint(os.path.join(model, "chkpnt30.ckpt"), device="cpu")
+    path = str(tmp_path / "again.ckpt")
+    ckpt.save_checkpoint(path, state, it)
+    assert os.listdir(tmp_path) == ["again.ckpt"]  # the temporary file is gone
+    again, it2 = ckpt.load_checkpoint(path, device="cpu")
+    assert it2 == it and again.sh_degree == state.sh_degree
+    assert again.opt_state.count == state.opt_state.count
+    a, b = ckpt.state_to_dict(again), ckpt.state_to_dict(state)
+    flat = [(a["params"], b["params"]), (a["opt_state"]["mu"], b["opt_state"]["mu"]),
+            (a["opt_state"]["nu"], b["opt_state"]["nu"]),
+            ({k: a[k] for k in ("active", "max_radii2d", "xyz_grad_accum", "denom")},
+             {k: b[k] for k in ("active", "max_radii2d", "xyz_grad_accum", "denom")})]
+    for x, y in flat:
+        for k in y:
+            assert torch.equal(x[k], y[k]) and x[k].dtype == y[k].dtype, k
+
+
+def test_cli_renders_and_scores(cli_run):
+    root, model, _ = cli_run
+    _cli(render.main, ["-m", model, "--quiet", "--iteration", "30"])  # cfg_args: cpu
+    renders = os.path.join(model, "test", "ours_30", "renders")
+    assert sorted(os.listdir(renders)) == ["00000.png"]  # 8 cameras, every 8th a test view
+    assert _levels(os.path.join(renders, "00000.png")).shape == (48, 64, 3)
+    results = _cli(metrics.main, ["-m", model, "--no_lpips", "--data_device", "cpu"])
+    r = results[model]["ours_30"]
+    assert 0 <= r["SSIM"] <= 1 and r["PSNR"] > 5
+    with open(os.path.join(model, "results.json")) as f:
+        assert json.load(f) == results[model]
+    with open(os.path.join(model, "per_view.json")) as f:
+        assert "00000.png" in json.load(f)["ours_30"]["PSNR"]
+
+
+def test_overflow_redo(tmp_path):
+    """A tiny instance capacity: the first step overflows, the capacity
+    grows and the step is redone; training ends with finite parameters."""
+    root = make_colmap_scene(str(tmp_path / "scene"), n_cams=4, n_pts=150)
+    model = str(tmp_path / "model")
+    scene, state, log = train.training(
+        ModelConfig(source_path=root, model_path=model, data_device="cpu"),
+        OptimizationConfig(iterations=6, densify_from_iter=100),
+        testing_iterations=[], saving_iterations=[6], checkpoint_iterations=[],
+        start_checkpoint=None, quiet=True, instance_capacity=64, capacity_bucket=64)
+    assert log["capacity"][0] > 64 and state.opt_state.count == 6
+    params, _ = tply.load_gaussians_ply(
+        os.path.join(model, "point_cloud", "iteration_6", "point_cloud.ply"), device="cpu")
+    assert torch.isfinite(params.xyz).all() and params.xyz.shape[0] == 150
+
+
+def test_metrics_without_renders_fails(tmp_path):
+    (tmp_path / "test" / "ours_1" / "renders").mkdir(parents=True)
+    (tmp_path / "test" / "ours_1" / "gt").mkdir(parents=True)
+    with pytest.raises(ValueError, match="no renders"):
+        _cli(metrics.main, ["-m", str(tmp_path), "--no_lpips", "--data_device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        _cli(metrics.main, ["-m", str(tmp_path / "missing"), "--no_lpips",
+                            "--data_device", "cpu"])
+    assert not (tmp_path / "results.json").exists()
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_clis_need_a_card_unless_told(no_cuda, tmp_path):
+    root = make_colmap_scene(str(tmp_path / "scene"), n_cams=2, n_pts=20)
+    model = str(tmp_path / "model")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _cli(train.main, ["-s", root, "-m", model, "--iterations", "1", "--quiet",
+                          "--disable_viewer"])
+    with pytest.raises(ValueError, match="data_device 'tpu'"):
+        _cli(train.main, ["-s", root, "-m", model, "--iterations", "1", "--quiet",
+                          "--disable_viewer", "--data_device", "tpu"])
+    os.makedirs(os.path.join(model, "point_cloud", "iteration_1"), exist_ok=True)
+    with open(os.path.join(model, "cfg_args"), "w") as f:
+        f.write(f"Namespace(source_path={root!r}, model_path={model!r}, sh_degree=3, "
+                "images='images', resolution=-1, white_background=False, eval=False)")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _cli(render.main, ["-m", model, "--quiet"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _cli(metrics.main, ["-m", model, "--no_lpips"])
+
+
+@pytest.mark.parametrize("cli,flag", [
+    (train, ["--debug"]), (train, ["--convert_SHs_python"]), (train, ["--ip", "0.0.0.0"]),
+    (render, ["--compute_cov3D_python"])])
+def test_clis_reject_flags_nothing_reads(cli, flag, tmp_path, capsys):
+    """The reference's pipeline toggles and viewer address have no reader
+    in the port: the CLIs refuse them rather than ignore them."""
+    with pytest.raises(SystemExit) as exc:
+        _cli(cli.main, ["-s", str(tmp_path), "-m", str(tmp_path), "--data_device", "cpu", *flag])
+    assert exc.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
+
+
+def test_lpips_matches_jax(tmp_path):
+    rng = np.random.default_rng(0)
+    chans = [3, 64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512]
+    z = {}
+    for i in range(13):
+        fan_in = chans[i] * 9
+        z[f"conv_{i}_w"] = (rng.normal(size=(chans[i + 1], chans[i], 3, 3))
+                            * np.sqrt(2.0 / fan_in)).astype(np.float32)
+        z[f"conv_{i}_b"] = rng.normal(scale=0.01, size=chans[i + 1]).astype(np.float32)
+    for i, c in enumerate((64, 128, 256, 512, 512)):
+        z[f"lin_{i}"] = rng.uniform(size=c).astype(np.float32)
+    path = str(tmp_path / "lpips_random.npz")
+    np.savez(path, **z)
+    x, y = (rng.uniform(size=(2, 3, 32, 40)).astype(np.float32) for _ in range(2))
+    want = np.asarray(jmetrics.lpips(jnp.asarray(x), jnp.asarray(y), weights_path=path))
+    got = metrics_lib.lpips(torch.from_numpy(x), torch.from_numpy(y), weights_path=path)
+    assert want.shape == (2,) and (want > 0).all()
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+    assert metrics_lib.lpips_available(path) and not metrics_lib.lpips_available(
+        str(tmp_path / "none.npz"))

@@ -4,7 +4,8 @@ imports no JAX, so it also runs on a CUDA machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-expand is held bit-exact on every slot; the forward compositor to atol
+both expands are held bit-exact on every slot (the index expand also
+against the segment expand of the same table); the forward compositor to atol
 1e-4 on rgb/final_T (fp32 sums in another order, exp/log to a few ulp)
 with ``chunks_done`` equal; the backward compositor per gradient row to
 1e-4 of the row's largest value plus 1e-3 of each value, and exactly 0
@@ -62,6 +63,33 @@ def test_expand_kernel_bit_exact(dev, dead_frac):
     got = expand.expand_rows_by_segments(t, 0, k)
     want = expand.expand_rows_by_segments_plain(t, 0, k)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dead_frac", [0.0, 0.3])
+def test_expand_rows_kernel_bit_exact(dev, dead_frac):
+    """K6 along K1's own slot -> column map: equal to its plain version
+    and to K1's output, bit for bit; clamps indices out of range."""
+    rng = np.random.default_rng(1)
+    nc = 5000
+    n_live = int(nc * (1 - dead_frac))
+    counts = rng.integers(1, 9, nc)
+    table = rng.normal(size=(16, nc)).astype(np.float32)
+    table[0, :n_live] = np.concatenate([[0], np.cumsum(counts[:n_live])[:-1]])
+    table[0, n_live:] = np.inf
+    k = int(counts[:n_live].sum()) + 1000
+    t = to_torch(table).to(dev)
+    slots = torch.arange(k, dtype=torch.float32, device=dev)
+    ck = (torch.searchsorted(t[0].contiguous(), slots, right=True) - 1).clamp(0, nc - 1)
+    ck = ck.to(torch.int32)
+    before = expand.EXPAND_ROWS.launches
+    got = expand.expand_rows(t, ck)
+    assert expand.EXPAND_ROWS.launches == before + 1
+    assert torch.equal(got, expand.expand_rows_plain(t, ck))
+    assert torch.equal(got, expand.expand_rows_by_segments(t, 0, k))
+    wild = torch.tensor([-3, 0, nc - 1, nc + 7], dtype=torch.int32, device=dev)
+    assert torch.equal(expand.expand_rows(t, wild), t[:, [0, 0, nc - 1, nc - 1]])
+    with pytest.raises(ValueError):
+        expand.expand_rows(t, ck.to(torch.int64))
 
 
 def _scene_features(dev, n=3000, w=256, h=192):

@@ -13,14 +13,15 @@ import pytest
 import torch
 
 from gaussian_splatting_with_eye_tracking_tpu_torch import backend, fps_foveated, track_render
-from gaussian_splatting_with_eye_tracking_tpu_torch import train_lib
+from gaussian_splatting_with_eye_tracking_tpu_torch import scene_synth, train_lib
 from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
+from gaussian_splatting_with_eye_tracking_tpu_torch.models import checkpoint as ckpt
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as tgm
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import ply_io as tply
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, expand, segsum
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import rasterize as trast
-from gaussian_splatting_with_eye_tracking_tpu_torch.scene.cameras import MiniCam
+from gaussian_splatting_with_eye_tracking_tpu_torch.scene.cameras import Camera, MiniCam
 from tests.helpers import make_camera, make_random_gaussians
 from tests.torch_helpers import cam_to_torch, to_torch
 
@@ -51,6 +52,19 @@ def test_no_jax_imports(target):
     assert not bad, bad
 
 
+def test_no_pil_at_module_level():
+    """Importing the package needs no imaging package: PIL is imported
+    only inside the functions that read or write an image file, as in the
+    JAX package."""
+    bad = []
+    for f in sorted(PORT.rglob("*.py")):
+        for node in ast.parse(f.read_text()).body:
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom) else [])
+            bad += [(str(f.relative_to(ROOT)), m) for m in names if m.split(".")[0] == "PIL"]
+    assert not bad, bad
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -75,11 +89,19 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: cam.params(),
         lambda: tgm.params_from_jax(params),
         lambda: tply.load_gaussians_ply(path),
+        lambda: Camera(0, np.eye(3), np.zeros(3), 1.0, 1.0, np.zeros((3, 4, 4)), "c", 0).params(),
+        lambda: Camera(0, np.eye(3), np.zeros(3), 1.0, 1.0, np.zeros((3, 4, 4)), "c", 0).gt(),
+        lambda: ckpt.load_checkpoint(path),
+        lambda: scene_synth.synthesize_dataset(str(tmp_path / "synth")),
+        lambda: backend.resolve_data_device("cuda"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert backend.resolve_device("cpu") == torch.device("cpu")
+    assert backend.resolve_data_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="'tpu'"):
+        backend.resolve_data_device("tpu")
 
 
 def test_foveated_entry_points_raise_without_cuda(no_cuda):
@@ -159,7 +181,8 @@ def test_eval_render_rejects_model_on_other_device():
 
 
 @pytest.mark.parametrize("kernel,source", [
-    (expand.EXPAND_SEG, "expand_seg.cu"), (blend.BLEND_FWD, "blend_fwd.cu"),
+    (expand.EXPAND_SEG, "expand_seg.cu"), (expand.EXPAND_ROWS, "expand_seg.cu"),
+    (blend.BLEND_FWD, "blend_fwd.cu"),
     (blend.BLEND_BWD, "blend_bwd.cu"), (segsum.SEGSUM, "segsum.cu"),
     (blend.BLEND_ROUND, "blend_amr.cu"), (blend.BLEND_LEVELS, "blend_amr.cu")])
 def test_kernel_wrappers_bound_to_sources(kernel, source):
@@ -174,10 +197,13 @@ def test_kernel_wrappers_bound_to_sources(kernel, source):
 def test_cpu_calls_use_plain_versions_and_count_nothing():
     table = torch.tensor([[0.0, 2.0, float("inf")], [1.0, 2.0, 3.0]])
     feat = torch.zeros((16, 128))
-    kernels = (expand.EXPAND_SEG, blend.BLEND_FWD, blend.BLEND_BWD, segsum.SEGSUM)
+    kernels = (expand.EXPAND_SEG, expand.EXPAND_ROWS, blend.BLEND_FWD, blend.BLEND_BWD,
+               segsum.SEGSUM)
     before = [k.launches for k in kernels]
     out = expand.expand_rows_by_segments(table, 0, 5)
     assert out[1].tolist() == [1.0, 1.0, 2.0, 2.0, 2.0]
+    ck = torch.tensor([0, 0, 1, 1, 1], dtype=torch.int32)
+    assert torch.equal(expand.expand_rows(table, ck), out)
     offsets = torch.tensor([0, 0], dtype=torch.int32)
     fwd = blend.blend_fwd(feat, offsets, 1, 1)
     blend.blend_bwd(feat, offsets, fwd, torch.ones_like(fwd), 1, 1)
