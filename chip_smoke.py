@@ -10,7 +10,9 @@ Run from the repository root, with no arguments:
 Phases (any failure raises and the script exits non-zero):
 
  1. print the card's name and power limit (nvidia-smi);
- 2. build the hand-written kernels from the package's ``csrc/`` with nvcc;
+ 2. build the hand-written kernels from the package's ``csrc/`` with nvcc,
+    print ptxas' registers / shared memory / spills per source, and for the
+    redesigned compositors (K2, K3) their CTAs per SM;
  3. make bench.py's scene in numpy (300,000 gaussians, SH degree 3, seed
     0), write it as a PLY snapshot with the port and load it back;
  4. serve four 1920x1088 view requests (bench.py's front camera and three
@@ -20,12 +22,16 @@ Phases (any failure raises and the script exits non-zero):
     after, and each kernel must have run once per request;
  5. on the front view's real inputs, hold each kernel against its plain
     PyTorch version (expand bit-exact; blend rgb/final_T within 1e-3 and
-    chunks_done equal on all but 0.1% of tiles); the index expand (K6,
+    chunks_done equal on all but 0.1% of tiles, and a second blend launch
+    bit-identical to the first); the index expand (K6,
     which no path of the package calls) along the segment expand's own
     slot -> column map, bit-exact against its plain version and against
     the segment expand's output;
  6. time each view and each kernel with CUDA events (warm-up, then the
     median of 10), beside the plain versions and the library yardstick;
+    K2 (and K3 in phase 13) also as the kernel's launch alone, its launch
+    order made beforehand, heaviest tiles first and in tile order (both
+    bit-identical to the wrapper's output);
  7. eye tracking: draw a synthetic 640x400 eye (seed 0, pupil at gaze uv
     (0.55, 0.45)) and run RITnet and ``track_render.estimate_gaze`` on the
     card and on the CPU (logits within 1e-3 of their largest magnitude,
@@ -59,7 +65,8 @@ Phases (any failure raises and the script exits non-zero):
 13. on the front view's real cotangents, hold the backward kernels
     against their plain versions (blend_bwd per row within 1e-3 of the
     row's largest value plus 1e-3 of each value, and exactly 0 on chunks
-    past chunks_done; segsum within 1e-5 of the row's largest value), and
+    past chunks_done, and a second launch bit-identical to the first;
+    segsum within 1e-5 of the row's largest value), and
     time the train step, its phases, its peak memory and the kernels;
 14. the CLIs on a synthesized COLMAP scene (train_regression_r04's: 24
     cameras at 256x256, GT rendered from a 3000-gaussian mixture), in one
@@ -83,6 +90,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -162,6 +170,21 @@ def cuda_ms(fn, reps=REPS, warmup=1):
 
 
 GRAD_NAMES = ("means", "scales", "quats", "opacities", "sh", "bg", "means2d_offset")
+
+
+def ptxas_report(backend, stem):
+    """Registers, static shared memory and spilled bytes of the one kernel
+    of ``csrc/<stem>.cu`` (ptxas' report), and its CTAs per SM (the CUDA
+    runtime's occupancy query)."""
+    text = backend.build_log(stem)
+    regs = re.findall(r"Used (\d+) registers", text)
+    smem = re.findall(r"(\d+) bytes smem", text)
+    spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
+    if not regs or not spills:
+        raise AssertionError(f"{stem}: no ptxas report:\n{text}")
+    return {"registers": max(map(int, regs)), "smem_bytes": max(map(int, smem), default=0),
+            "spill_bytes": max(int(a) + int(b) for a, b in spills),
+            "blocks_per_sm": backend.blocks_per_sm(stem)}
 
 
 def small_scene_grads(rast, scene, cam):
@@ -293,7 +316,7 @@ def backward_checks(state, cam, target, bg, step):
     """Phase 13: the backward kernels against their plain versions on the
     front view's real cotangents, their bounds, and the timings of the
     train step (whole, by phase, peak memory) and of the kernels."""
-    from gaussian_splatting_with_eye_tracking_tpu_torch import train_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch import backend, train_lib
     from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, segsum
     from gaussian_splatting_with_eye_tracking_tpu_torch.ops import ssim as ssim_ops
 
@@ -310,6 +333,7 @@ def backward_checks(state, cam, target, bg, step):
 
     with torch.no_grad():
         k3 = blend.blend_bwd(feat, b.offsets, fwd, cot, gx, gy)
+        k3_again = blend.blend_bwd(feat, b.offsets, fwd, cot, gx, gy)
         k3_work = {}
         k3_plain = blend.blend_bwd_plain(feat, b.offsets, fwd, cot, gx, gy, work=k3_work)
         torch.cuda.synchronize()
@@ -326,10 +350,12 @@ def backward_checks(state, cam, target, bg, step):
         past = chunk_of >= fwd[:, 0, 4].to(torch.int64)[tile_of]
         if k3[:, :n_live][:, past].any() or k3[:, n_live:].any():
             raise AssertionError("blend_bwd wrote gradients past chunks_done")
+        if not torch.equal(k3.view(torch.int32), k3_again.view(torch.int32)):
+            raise AssertionError("blend_bwd: two launches on the same inputs differ")
         log(f"blend_bwd vs plain: per-row max |err| "
             f"{[f'{e:.3g}' for e in k3_err.amax(dim=1).tolist()]} of row max "
             f"{[f'{m:.3g}' for m in rowmax[:, 0].tolist()]}; {int(past.sum())} instances "
-            f"past chunks_done are 0")
+            f"past chunks_done are 0; a second launch is bit-identical")
 
         table, bounds = blend.id_order_table(k3, si.id_pos, b.gauss_start, b.gauss_count,
                                              MAX_INSTANCES)
@@ -352,6 +378,21 @@ def backward_checks(state, cam, target, bg, step):
 
         k3_ms = cuda_ms(lambda: blend.blend_bwd(feat, b.offsets, fwd, cot, gx, gy))
         k3_plain_ms = cuda_ms(lambda: blend.blend_bwd_plain(feat, b.offsets, fwd, cot, gx, gy))
+        # the kernel alone, as K2's (the output zero-filled beforehand)
+        k3_out = torch.zeros_like(k3)
+
+        def k3_launch(order):
+            blend.BLEND_BWD(feat.data_ptr(), feat.shape[1], b.offsets.data_ptr(),
+                            order.data_ptr(), gx * gy, gx, fwd.data_ptr(), cot.data_ptr(),
+                            k3_out.data_ptr(), backend.stream_ptr(feat))
+
+        k3_orders = {"kernel_ms": blend.tile_order(fwd[:, 0, 4]),
+                     "tile_order_ms": torch.arange(gx * gy, device=feat.device)}
+        k3_kernel = {}
+        for key, order in k3_orders.items():
+            k3_kernel[key] = cuda_ms(lambda: k3_launch(order))
+            if not torch.equal(k3_out.view(torch.int32), k3.view(torch.int32)):
+                raise AssertionError(f"blend_bwd launched in another order ({key}) differs")
         k4_ms = cuda_ms(lambda: segsum.segment_sum_bounds(table, bounds))
         k4_plain_ms = cuda_ms(lambda: segsum.segment_sum_bounds_plain(table, bounds))
         k4_lib_ms = cuda_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths, axis=0))
@@ -371,11 +412,18 @@ def backward_checks(state, cam, target, bg, step):
     k3_times = {"operations": max(k3_sfu / SFU_OPS_PER_S, k3_flops / FP32_FLOPS_PER_S),
                 "bytes": k3_bytes / HBM_BYTES_PER_S}
     k3_by = max(k3_times, key=k3_times.get)
+    # the recount: what the gate-first design cannot skip, an exp and the
+    # gate's 12 flops per pair past the log-domain pre-test, and the kept
+    # pairs' work as above
+    gate = k3_work["gate_lanes"]
+    k3_gate_ms = 1e3 * max(k3_times["bytes"], (gate + 3 * kept + lanes // 1024) / SFU_OPS_PER_S,
+                           (12 * gate + 34 * kept) / FP32_FLOPS_PER_S)
     # K4: the columns inside the segments read once (9 rows), the bounds
     # read, the (9, N) sums written; one add per value read
     k4_bytes = 4 * (table.shape[0] * (b1 - b0) + bounds.numel() + k4.numel())
     k4_bound = k4_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"blend_bwd: pairs in range {lanes}, power <= 0 {exp_lanes}, kept {kept}; "
+    log(f"blend_bwd: pairs in range {lanes}, power <= 0 {exp_lanes}, past the log-domain "
+        f"pre-test {gate}, kept {kept}; recounted bound {k3_gate_ms:.4f} ms; "
         f"{k3_sfu} transcendentals {k3_sfu / SFU_OPS_PER_S * 1e3:.4f} ms, {k3_flops} fp32 "
         f"flops {k3_flops / FP32_FLOPS_PER_S * 1e3:.4f} ms, {k3_bytes / 1e6:.1f} MB "
         f"{k3_times['bytes'] * 1e3:.4f} ms")
@@ -408,7 +456,8 @@ def backward_checks(state, cam, target, bg, step):
     return {
         "blend_bwd": {"max_abs_err": float(k3_err.max()), "ms": k3_ms,
                       "plain_ms": k3_plain_ms, "bound_ms": k3_times[k3_by] * 1e3,
-                      "bound_by": k3_by, "library_ms": None},
+                      "bound_by": k3_by, "library_ms": None, "gate_bound_ms": k3_gate_ms,
+                      **k3_kernel},
         "segsum": {"max_abs_err": float(k4_err.max()), "ms": k4_ms, "plain_ms": k4_plain_ms,
                    "bound_ms": k4_bound, "bound_by": "bytes", "library_ms": k4_lib_ms},
         "step": {"ms": step_ms, "split_ms": split, "peak_mib": peak_mib,
@@ -728,10 +777,12 @@ def main() -> int:
             + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
     else:
         log(f"build: libraries already up to date in {backend.BUILD_DIR}")
-    for kern in backend.kernels():
-        for line in backend.build_log(kern.stem).splitlines():
+    for stem in sorted({kern.stem for kern in backend.kernels()}):
+        for line in backend.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
-                log(f"  ptxas {kern.stem}: {line.strip()}")
+                log(f"  ptxas {stem}: {line.strip()}")
+    build = {stem: ptxas_report(backend, stem) for stem in ("blend_fwd", "blend_bwd")}
+    log(f"redesigned compositors: {json.dumps(build)}")
 
     # -- 3. the model, through a PLY snapshot --------------------------------
     t0 = time.perf_counter()
@@ -833,6 +884,7 @@ def main() -> int:
         feat_soa = blend.feat_soa_from_rows(si.feat_rows, 128)
         offsets = si.binning.offsets
         k2 = blend.blend_fwd(feat_soa, offsets, gx, gy)
+        k2_again = blend.blend_fwd(feat_soa, offsets, gx, gy)
         k2_work = {}  # the pairs these inputs need, counted by the plain version
         k2_plain = blend.blend_fwd_plain(feat_soa, offsets, gx, gy, work=k2_work)
         torch.cuda.synchronize()
@@ -844,6 +896,9 @@ def main() -> int:
             raise AssertionError("blend_fwd disagrees with its plain version")
         if len(bad_tiles) > 0.001 * gx * gy:
             raise AssertionError("blend_fwd chunks_done differs on too many tiles")
+        if not torch.equal(k2.view(torch.int32), k2_again.view(torch.int32)):
+            raise AssertionError("blend_fwd: two launches on the same inputs differ")
+        log("blend_fwd: a second launch is bit-identical")
         chunks = k2[:, 0, 4].to(torch.float64)
         if not torch.equal(k2[:, :, 4], k2[:, :1, 4].expand(-1, 1024)):
             raise AssertionError("chunks_done is not tile-uniform")
@@ -866,6 +921,23 @@ def main() -> int:
         k6_lib_ms = cuda_ms(lambda: table.index_select(1, ck))
         k2_ms = cuda_ms(lambda: blend.blend_fwd(feat_soa, offsets, gx, gy))
         k2_plain_ms = cuda_ms(lambda: blend.blend_fwd_plain(feat_soa, offsets, gx, gy))
+        # the kernel alone (its launch order made beforehand), heaviest
+        # tiles first as the wrapper orders them and in tile order
+        k2_out = torch.empty_like(k2)
+        tile_ids = torch.arange(gx * gy, device=dev)
+
+        def k2_launch(order):
+            blend.BLEND_FWD(feat_soa.data_ptr(), feat_soa.shape[1], offsets.data_ptr(),
+                            order.data_ptr(), gx * gy, gx, k2_out.data_ptr(),
+                            backend.stream_ptr(feat_soa))
+
+        k2_orders = {"kernel_ms": blend.tile_order(offsets[1:] - offsets[:-1]),
+                     "tile_order_ms": tile_ids}
+        k2_kernel = {}
+        for key, order in k2_orders.items():
+            k2_kernel[key] = cuda_ms(lambda: k2_launch(order))
+            if not torch.equal(k2_out.view(torch.int32), k2.view(torch.int32)):
+                raise AssertionError(f"blend_fwd launched in another order ({key}) differs")
 
     # bounds from the work this run's inputs need. K1: every slot written
     # once, the live columns read once (dead ones past them are never read)
@@ -889,6 +961,10 @@ def main() -> int:
     k2_times = {"operations": max(k2_sfu / SFU_OPS_PER_S, k2_flops / FP32_FLOPS_PER_S),
                 "bytes": k2_bytes / HBM_BYTES_PER_S}
     k2_bound_by = max(k2_times, key=k2_times.get)
+    # the recount, as K3's: an exp and 12 flops per pair past the pre-test
+    gate = k2_work["gate_lanes"]
+    k2_gate_ms = 1e3 * max(k2_times["bytes"], (gate + 2 * kept + lanes // 1024) / SFU_OPS_PER_S,
+                           (12 * gate + 11 * kept) / FP32_FLOPS_PER_S)
     log(f"expand_seg: {live_cols} live columns, {k1_bytes / 1e6:.1f} MB moved, "
         f"bound {k1_bound:.4f} ms (bytes)")
     log(f"expand_rows: {k6_bytes / 1e6:.1f} MB moved, bound {k6_bound:.4f} ms (bytes); "
@@ -896,7 +972,8 @@ def main() -> int:
         f"launches on the main path {launches['expand_rows']} (no path of the package "
         f"calls it, as in the JAX package)")
     log(f"blend_fwd: {int(chunks.sum())} chunks; pairs in range {lanes}, power <= 0 "
-        f"{exp_lanes}, kept {kept}; {k2_sfu} transcendentals "
+        f"{exp_lanes}, past the log-domain pre-test {gate}, kept {kept}; recounted bound "
+        f"{k2_gate_ms:.4f} ms; {k2_sfu} transcendentals "
         f"{k2_sfu / SFU_OPS_PER_S * 1e3:.4f} ms, {k2_flops} fp32 flops "
         f"{k2_flops / FP32_FLOPS_PER_S * 1e3:.4f} ms, "
         f"{k2_bytes / 1e6:.1f} MB {k2_times['bytes'] * 1e3:.4f} ms")
@@ -953,10 +1030,10 @@ def main() -> int:
          "replaces": REPLACES["blend_fwd"], "launches": launches["blend_fwd"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_times[k2_bound_by] * 1e3, "bound_by": k2_bound_by,
-         "library_ms": None},
+         "library_ms": None, "gate_bound_ms": k2_gate_ms, **k2_kernel, **build["blend_fwd"]},
         {"name": "blend_bwd", "route": "cuda", "source": src.format("blend_bwd"),
          "replaces": REPLACES["blend_bwd"], "launches": train["launches"]["blend_bwd"],
-         **bwd["blend_bwd"]},
+         **bwd["blend_bwd"], **build["blend_bwd"]},
         {"name": "segsum", "route": "cuda", "source": src.format("segsum"),
          "replaces": REPLACES["segsum"], "launches": train["launches"]["segsum"],
          **bwd["segsum"]},

@@ -183,3 +183,24 @@ def check_cuda_tensor(name: str, t: torch.Tensor, dtype: torch.dtype):
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def check_aligned(name: str, t: torch.Tensor, nbytes: int = 16):
+    """Kernels that read ``t`` in 16-byte vectors (cp.async, float4) need
+    its data to start on such a boundary, as fresh allocations do."""
+    if t.data_ptr() % nbytes:
+        raise ValueError(f"{name}: data is not {nbytes}-byte aligned")
+
+
+def blocks_per_sm(stem: str) -> int:
+    """CTAs of the kernel in ``csrc/<stem>.cu`` resident per SM, from its
+    ``<stem>_blocks_per_sm`` entry (the CUDA runtime's occupancy query)."""
+    if stem not in _LIBS:
+        build_kernels()
+    fn = getattr(ctypes.CDLL(str(_LIBS[stem])), f"{stem}_blocks_per_sm")
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    blocks = fn()
+    if blocks < 0:
+        raise RuntimeError(f"{stem}: occupancy query failed with CUDA error {-blocks}")
+    return blocks

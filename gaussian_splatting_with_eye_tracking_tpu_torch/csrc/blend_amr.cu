@@ -27,7 +27,10 @@
 // each thread L pixels. The chunk loop is a template on L (1..4) chosen
 // once per CTA (the level is block-uniform), which keeps the per-pixel
 // state in registers; the round kernel is the same template with L = 1 and
-// its fixed offset. Each chunk's terms are staged once in shared memory.
+// its fixed offset. Staging (cp.async, double-buffered), the log-domain
+// pre-test and the per-warp gate cull come with the shared loop: a warp's
+// pixel box is reduced from its lanes' pixels, 32 x 4 px for a round's
+// stride-2 subgrid rows. Tiles launch in index order.
 
 #include "composite.cuh"
 
@@ -57,7 +60,7 @@ __device__ __forceinline__ void levels_tile(
     int grid_x, int step, bool scale_only, float* __restrict__ rows) {
   float px[NR], py[NR];
   round_pixels<NR>(t, grid_x, px, py);
-  composite<NR>(s, feat, kp, o, n, step, scale_only, px, py, rows);
+  composite<NR>(s, feat, kp, o, n, step, scale_only, px, py, rows, SUBPIX);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -71,7 +74,7 @@ blend_round_kernel(const float* __restrict__ feat, int kp,
   px[0] = (float)((t % grid_x) * TILE + 2 * (threadIdx.x % SUBW) + offx);
   py[0] = (float)((t / grid_x) * TILE + 2 * (threadIdx.x / SUBW) + offy);
   composite<1>(s, feat, kp, offsets[t], counts[t], 1, false, px, py,
-               out + ((int64_t)t * SUBPIX + threadIdx.x) * OUTC);
+               out + ((int64_t)t * SUBPIX + threadIdx.x) * OUTC, SUBPIX);
 }
 
 __global__ void __launch_bounds__(THREADS)

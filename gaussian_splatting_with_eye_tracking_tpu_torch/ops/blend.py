@@ -41,7 +41,9 @@ Semantics shared by both versions (and the TPU kernels):
 
 The TPU kernels' MXU scans and moment matmuls, bf16 limb splits, private
 per-tile gradient regions and TUNE knobs were TPU workarounds and are not
-ported.
+ported. The CUDA compositors launch the tiles heaviest first
+(``tile_order``) and skip, per warp, the instances whose gate extent
+(``gate_box``) misses the warp's pixels; neither changes a value.
 """
 
 from __future__ import annotations
@@ -58,6 +60,9 @@ from gaussian_splatting_with_eye_tracking_tpu_torch.ops import segsum
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 LOG_T_MIN = math.log(1e-4)  # the tile exits once every pixel's T < 1e-4
+# the CUDA compositors' pre-test before the exp (csrc/stage.cuh): a pair
+# with power + log op below it cannot pass the alpha gate
+LOG_GATE = math.log(ALPHA_MIN) - 1e-5
 
 FEAT = 16  # SoA rows (10 used)
 GID_ROW = 9  # feature row carrying the gaussian id (exact in f32 < 2^24)
@@ -69,13 +74,13 @@ CHUNK = 128
 
 BLEND_FWD = backend.CudaKernel(
     "blend_fwd", "blend_fwd", "blend_fwd_launch",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
 )
 
 BLEND_BWD = backend.CudaKernel(
     "blend_bwd", "blend_bwd", "blend_bwd_launch",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
      ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
      ctypes.c_void_p],
 )
@@ -147,29 +152,66 @@ def _tile_pixels_rounds(t: torch.Tensor, grid_x: int, tile: int, n_rounds: int):
     return torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1)
 
 
+def tile_order(work: torch.Tensor) -> torch.Tensor:
+    """(T,) int64 launch order of the tiles for the CUDA compositors: by
+    descending ``work`` per tile, ties in tile order, so that the heaviest
+    tiles start in the first wave. The outputs do not depend on it."""
+    return torch.argsort(work, descending=True, stable=True)
+
+
+def gate_box(x, y, a, b, c, opacity):
+    """Plain mirror of the CUDA compositors' per-instance gate extent
+    (``gate_warps`` in csrc/stage.cuh), in float64: (x0, x1, y0, y1) of the
+    box that holds every pixel at which an instance with centre (x, y),
+    conic (a, b, c) and ``opacity`` (float32 tensors) can pass the alpha
+    gate. An empty box (x0 > x1) where no pixel can; an infinite one where
+    the conic is not culled (not positive definite, or conditioning
+    ac/det above 1e5). See stage.cuh for the margins."""
+    lo = torch.log(opacity).double()
+    x, y, a, b, c = (v.double() for v in (x, y, a, b, c))
+    tau = lo - math.log(ALPHA_MIN) + 1e-4
+    det = a * c - b * b
+    kappa = a * c / det
+    k = 2.0 * tau * (1.0 + 1e-3 + 1e-5 * kappa) / det
+    hx = torch.sqrt(k * c) + 1e-2 + 1e-6 * x.abs()
+    hy = torch.sqrt(k * a) + 1e-2 + 1e-6 * y.abs()
+    cull = (a > 0) & (c > 0) & (det > 0) & (kappa <= 1e5)
+    hx = torch.where(cull, hx, math.inf)
+    hy = torch.where(cull, hy, math.inf)
+    empty = ~(tau > 0)
+    hx = torch.where(empty, -math.inf, hx)
+    hy = torch.where(empty, -math.inf, hy)
+    return x - hx, x + hx, y - hy, y + hy
+
+
 def _alpha_terms(f, valid, px, py):
     """Feature rows f (9, B, C) of a chunk, lane mask (B, C) and pixel
-    coordinates (B, P) -> dx, dy, power, alpha_raw, keep and the gated,
-    clamped alpha, each (B, P, C)."""
+    coordinates (B, P) -> dx, dy, power, power + log op, alpha_raw, keep
+    and the gated, clamped alpha, each (B, P, C)."""
     logop = torch.where(valid, torch.log(f[8]), torch.full_like(f[8], -math.inf))
     hca, ncb, hcc = -0.5 * f[2], -f[3], -0.5 * f[4]
     dx = f[0][:, None, :] - px[:, :, None]
     dy = f[1][:, None, :] - py[:, :, None]
     power = (hca[:, None, :] * dx + ncb[:, None, :] * dy) * dx \
         + (hcc[:, None, :] * dy) * dy
-    alpha_raw = torch.exp(power + logop[:, None, :])
+    log_alpha = power + logop[:, None, :]
+    alpha_raw = torch.exp(log_alpha)
     keep = (power <= 0.0) & (alpha_raw >= ALPHA_MIN)
     alpha = torch.where(keep, torch.clamp_max(alpha_raw, ALPHA_MAX),
                         torch.zeros_like(alpha_raw))
-    return dx, dy, power, alpha_raw, keep, alpha
+    return dx, dy, power, log_alpha, alpha_raw, keep, alpha
 
 
-def _count_work(work: dict, valid, power, keep, pixels: int):
+def _count_work(work: dict, valid, power, log_alpha, keep, pixels: int):
     """Add a chunk's (pixel, in-range instance) pairs ("lanes"), those with
-    power <= 0 ("exp_lanes") and those that pass the alpha gate ("kept")."""
+    power <= 0 ("exp_lanes"), those with power <= 0 that pass the
+    log-domain pre-test power + log op >= LOG_GATE ("gate_lanes": the exps
+    the CUDA compositors run) and those that pass the alpha gate
+    ("kept")."""
     exp_lanes = valid[:, None, :] & (power <= 0.0)
     for key, n_pairs in (("lanes", int(valid.sum()) * pixels),
                          ("exp_lanes", int(exp_lanes.sum())),
+                         ("gate_lanes", int((exp_lanes & (log_alpha >= LOG_GATE)).sum())),
                          ("kept", int(keep.sum()))):
         work[key] = work.get(key, 0) + n_pairs
 
@@ -229,9 +271,9 @@ def _stream_plain(feat_soa, ranges, px, py, chunk, out, t, step=1, scale_only=Fa
         ids = start[:, None] + ci * dma_step * chunk + lane[None, :]  # (B, C)
         f = feat_soa[:9, ids.clamp_max(kp - 1)]  # (9, B, C)
         valid = run[:, None] & (ids >= o[:, None]) & (ids < (o + n)[:, None])
-        _, _, power, alpha_raw, keep, alpha = _alpha_terms(f, valid, px, py)
+        _, _, power, log_alpha, alpha_raw, keep, alpha = _alpha_terms(f, valid, px, py)
         if work is not None:
-            _count_work(work, valid, power, keep, pixels)
+            _count_work(work, valid, power, log_alpha, keep, pixels)
         lom = torch.log(1.0 - alpha)
         rescaled = None
         if step > 1:  # this chunk's lanes each stand in for rep instances
@@ -267,6 +309,7 @@ def blend_fwd(feat_soa: torch.Tensor, offsets: torch.Tensor, grid_x: int,
         return blend_fwd_plain(feat_soa, offsets, grid_x, grid_y)
     backend.check_cuda_tensor("feat_soa", feat_soa, torch.float32)
     backend.check_cuda_tensor("offsets", offsets, torch.int32)
+    backend.check_aligned("feat_soa", feat_soa)
     num_tiles = grid_x * grid_y
     if feat_soa.shape[0] != FEAT or feat_soa.shape[1] % CHUNK:
         raise ValueError(f"feat_soa shape {tuple(feat_soa.shape)} is not "
@@ -276,8 +319,10 @@ def blend_fwd(feat_soa: torch.Tensor, offsets: torch.Tensor, grid_x: int,
     out = torch.empty((num_tiles, TILE * TILE, OUTC), dtype=torch.float32,
                       device=feat_soa.device)
     if num_tiles > 0:
+        order = tile_order(offsets[1:] - offsets[:-1])  # instances per tile
         BLEND_FWD(feat_soa.data_ptr(), feat_soa.shape[1], offsets.data_ptr(),
-                  num_tiles, grid_x, out.data_ptr(), backend.stream_ptr(feat_soa))
+                  order.data_ptr(), num_tiles, grid_x, out.data_ptr(),
+                  backend.stream_ptr(feat_soa))
     return out
 
 
@@ -337,6 +382,7 @@ def _check_amr_inputs(feat_soa, offsets, counts, num_tiles, levels=None):
                            ("levels", levels, torch.int32)):
         if x is not None:
             backend.check_cuda_tensor(name, x, dtype)
+    backend.check_aligned("feat_soa", feat_soa)
     if feat_soa.shape[0] != FEAT or feat_soa.shape[1] % CHUNK:
         raise ValueError(f"feat_soa shape {tuple(feat_soa.shape)} is not "
                          f"({FEAT}, multiple of {CHUNK})")
@@ -448,9 +494,9 @@ def blend_bwd_plain(feat_soa: torch.Tensor, offsets: torch.Tensor,
             ids = start[:, None] + ci * chunk + lane[None, :]  # (B, C)
             f = feat_soa[:9, ids.clamp_max(kp - 1)]  # (9, B, C)
             valid = (ci < done)[:, None] & (ids >= o[:, None]) & (ids < (o + n)[:, None])
-            dx, dy, power, alpha_raw, keep, alpha = _alpha_terms(f, valid, px, py)
+            dx, dy, power, log_alpha, alpha_raw, keep, alpha = _alpha_terms(f, valid, px, py)
             if work is not None:
-                _count_work(work, valid, power, keep, pixels)
+                _count_work(work, valid, power, log_alpha, keep, pixels)
             om = 1.0 - alpha
             rsum = _suffix_incl(torch.log(om))  # sum over j >= i of log(1 - alpha_j)
             w = alpha * torch.exp(cur[..., None] - rsum)
@@ -487,6 +533,8 @@ def blend_bwd(feat_soa: torch.Tensor, offsets: torch.Tensor, fwd_out: torch.Tens
                            ("fwd_out", fwd_out, torch.float32),
                            ("cot", cot, torch.float32)):
         backend.check_cuda_tensor(name, x, dtype)
+        if dtype == torch.float32:
+            backend.check_aligned(name, x)
     num_tiles = grid_x * grid_y
     if feat_soa.shape[0] != FEAT or feat_soa.shape[1] % CHUNK:
         raise ValueError(f"feat_soa shape {tuple(feat_soa.shape)} is not "
@@ -500,8 +548,9 @@ def blend_bwd(feat_soa: torch.Tensor, offsets: torch.Tensor, fwd_out: torch.Tens
     dfeat = torch.zeros((NGRAD, feat_soa.shape[1]), dtype=torch.float32,
                         device=feat_soa.device)
     if num_tiles > 0:
+        order = tile_order(fwd_out[:, 0, 4])  # chunks the forward ran
         BLEND_BWD(feat_soa.data_ptr(), feat_soa.shape[1], offsets.data_ptr(),
-                  num_tiles, grid_x, fwd_out.data_ptr(), cot.data_ptr(),
+                  order.data_ptr(), num_tiles, grid_x, fwd_out.data_ptr(), cot.data_ptr(),
                   dfeat.data_ptr(), backend.stream_ptr(feat_soa))
     return dfeat
 

@@ -5,9 +5,12 @@ offsets. rgb, final_T and logT to atol 1e-4 (fp32 sums in another order:
 the TPU kernel scans with split-bf16 MXU products, the plain version with
 cumsum); ``chunks_done`` exact."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from gaussian_splatting_with_eye_tracking_tpu.ops import binning as jbin
 from gaussian_splatting_with_eye_tracking_tpu.ops import pallas_blend as jpb
@@ -98,7 +101,7 @@ def test_plain_counts_its_work():
     got = tblend.blend_fwd_plain(to_torch(feat), to_torch(np.array(offsets, np.int32)),
                                  2, 1, 32, 64, work=work)
     assert_equal(got[:, 0, 4], [2, 3])
-    want = {"lanes": 0, "exp_lanes": 0, "kept": 0}
+    want = {"lanes": 0, "exp_lanes": 0, "gate_lanes": 0, "kept": 0}
     ys, xs = np.mgrid[0:32, 0:32]
     for t in range(2):
         f = to_torch(feat[:, offsets[t]:offsets[t + 1]])
@@ -109,9 +112,10 @@ def test_plain_counts_its_work():
         alpha_raw = (power + f[8].log()).exp()
         want["lanes"] += power.numel()
         want["exp_lanes"] += int((power <= 0).sum())
+        want["gate_lanes"] += int(((power <= 0) & (power + f[8].log() >= tblend.LOG_GATE)).sum())
         want["kept"] += int(((power <= 0) & (alpha_raw >= tblend.ALPHA_MIN)).sum())
     assert work == want
-    assert 0 < want["kept"] < want["exp_lanes"] <= want["lanes"]
+    assert 0 < want["kept"] <= want["gate_lanes"] < want["exp_lanes"] <= want["lanes"]
 
 
 def test_blend_fwd_wrapper_on_cpu_is_plain():
@@ -130,3 +134,98 @@ def test_assemble_tiles(gx, gy):
     gc, gt = tblend.assemble_tiles(to_torch(tiles), gx, gy, 32, to_torch(bg))
     assert_close(gc, wc, atol=1e-7)
     assert_equal(gt, wt)
+
+
+# -- the CUDA compositors' launch order and gate cull, mirrored in plain
+# PyTorch (the kernels themselves are held in tests/test_torch_cuda.py) --
+
+
+@pytest.mark.parametrize("counts", [
+    np.random.default_rng(7).integers(0, 6, 2040),  # many ties
+    np.full(37, 3),
+    np.array([0]),
+    np.arange(50)[::-1] % 7,
+])
+def test_tile_order_is_heaviest_first_and_stable(counts):
+    c = torch.from_numpy(counts.astype(np.int64))
+    order = tblend.tile_order(c)
+    assert order.dtype == torch.int64 and torch.equal(order, tblend.tile_order(c))
+    o = order
+    assert torch.equal(torch.sort(o).values, torch.arange(c.numel()))
+    k = c[o]
+    assert (k[1:] <= k[:-1]).all()
+    ties = k[1:] == k[:-1]
+    assert (o[1:][ties] > o[:-1][ties]).all()  # equal counts in tile order
+
+
+def test_tile_order_keys_of_the_wrappers():
+    """What the CUDA wrappers sort by: the forward by instances per tile,
+    the backward by the chunks the forward ran (float column 4)."""
+    offsets = torch.tensor([0, 127, 129, 129, 600, 601], dtype=torch.int32)
+    assert tblend.tile_order(offsets[1:] - offsets[:-1]).tolist() == [3, 0, 1, 4, 2]
+    fwd = torch.zeros((5, 1024, 8))
+    fwd[:, :, 4] = torch.tensor([1.0, 2.0, 0.0, 2.0, 1.0])[:, None]
+    assert tblend.tile_order(fwd[:, 0, 4]).tolist() == [1, 3, 0, 4, 2]
+
+
+def _conics(rng, n, ratio_max):
+    """n float32 conics (a, b, c) of covariances with eigenvalues 0.3 * (1,
+    r) * s, r up to ratio_max, s in [1, 60], random rotations."""
+    theta = rng.uniform(0, np.pi, n)
+    s = rng.uniform(1, 60, n)
+    r = np.exp(rng.uniform(0, np.log(ratio_max), n))
+    l1, l2 = 0.3 * s, 0.3 * s * r
+    l2 = np.minimum(l2, 55.0 ** 2 / 8)  # keeps the gate extent inside the grid below
+    cs, sn = np.cos(theta), np.sin(theta)
+    cxx = l1 * cs ** 2 + l2 * sn ** 2
+    cyy = l1 * sn ** 2 + l2 * cs ** 2
+    cxy = (l2 - l1) * cs * sn
+    det = cxx * cyy - cxy ** 2
+    return [torch.from_numpy(v.astype(np.float32)) for v in (cyy / det, -cxy / det, cxx / det)]
+
+
+@pytest.mark.parametrize("kind", ["round", "needle", "near_threshold"])
+def test_gate_box_holds_every_kept_pixel(kind):
+    """Every integer pixel within 64 px of an instance that passes the
+    exact alpha gate (float32, as the plain versions compute it) passes the
+    log-domain pre-test and lies in the instance's gate box; the box is
+    close to the ellipse's own where the conic is well conditioned."""
+    rng = np.random.default_rng({"round": 0, "needle": 1, "near_threshold": 2}[kind])
+    n = 160
+    a, b, c = _conics(rng, n, {"round": 3.0, "needle": 3e4, "near_threshold": 3.0}[kind])
+    if kind == "near_threshold":  # opacities 1/255 +- 4 ulp, centres on pixels
+        op = np.nextafter(np.float32(tblend.ALPHA_MIN), np.float32(1), dtype=np.float32)
+        steps = rng.integers(-5, 4, n)
+        op = np.array([np.float32(tblend.ALPHA_MIN) + k * (op - np.float32(tblend.ALPHA_MIN))
+                       for k in steps], np.float32)
+        centre = rng.integers(0, 2000, (2, n)).astype(np.float32)
+    else:
+        op = rng.uniform(0.002, 1.0, n).astype(np.float32)
+        centre = rng.uniform(0, 2000, (2, n)).astype(np.float32)
+    op, x, y = torch.from_numpy(op), torch.from_numpy(centre[0]), torch.from_numpy(centre[1])
+    grid = torch.arange(-64, 65, dtype=torch.float32)
+    px = (torch.round(x)[:, None, None] + grid[None, None, :]).expand(n, 129, 129)
+    py = (torch.round(y)[:, None, None] + grid[None, :, None]).expand(n, 129, 129)
+    dx, dy = x[:, None, None] - px, y[:, None, None] - py
+    ha, nb, hc = (v[:, None, None] for v in (-0.5 * a, -b, -0.5 * c))
+    power = (ha * dx + nb * dy) * dx + (hc * dy) * dy
+    log_alpha = power + torch.log(op)[:, None, None]
+    kept = (power <= 0) & (torch.exp(log_alpha) >= tblend.ALPHA_MIN)
+    assert kept.any()
+    assert (log_alpha[kept] >= tblend.LOG_GATE).all()
+    x0, x1, y0, y1 = (v[:, None, None] for v in tblend.gate_box(x, y, a, b, c, op))
+    inside = (px >= x0) & (px <= x1) & (py >= y0) & (py <= y1)
+    assert inside[kept].all()
+    if kind == "near_threshold":  # extents of a pixel or less: nothing to measure
+        return
+    # not vacuous: finite boxes, within a few percent of the exact extent
+    tau = torch.log(op).double() - math.log(tblend.ALPHA_MIN)
+    det = a.double() * c.double() - b.double() ** 2
+    exact = torch.sqrt((2 * tau * c.double() / det).clamp_min(0))
+    half = (x1 - x0)[:, 0, 0] / 2
+    live = tau > 1e-3
+    kappa = a.double() * c.double() / det
+    assert torch.isfinite(half[live & (kappa <= 1e5)]).all()
+    well = live & (kappa < 10)
+    assert well.any()
+    assert (half[well] <= 1.02 * exact[well] + 0.05).all()

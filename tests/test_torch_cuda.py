@@ -303,6 +303,9 @@ def test_launch_counters_and_input_checks(dev):
         blend.blend_fwd(feat[:, :100].contiguous(), offsets, gx, gy)
     with pytest.raises(ValueError):
         blend.blend_fwd(feat, offsets.to(torch.int64), gx, gy)
+    odd = torch.zeros(feat.numel() + 1, device=dev)[1:].view(feat.shape)  # 4-byte aligned
+    with pytest.raises(ValueError, match="aligned"):
+        blend.blend_fwd(odd, offsets, gx, gy)
     assert blend.BLEND_FWD.launches == before_b + 1
 
 
@@ -358,3 +361,116 @@ def test_train_step_card_matches_cpu(dev):
         # mu = 0.1 g after one step: the gradient tolerance, scaled
         assert torch.allclose(g_mu, c_mu, atol=0.1 * 2e-3, rtol=5e-3), name
         assert c_mu.abs().max() > 0, name
+
+
+def _csr(tiles):
+    """Per-tile instance lists [(9, m_t) float32] -> the (16, kp) feature
+    array in CSR order (kp a multiple of 128) and the (T+1) offsets."""
+    sizes = [f.shape[1] for f in tiles]
+    offsets = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    feat = np.zeros((16, max(128, -(-int(offsets[-1]) // 128) * 128)), np.float32)
+    for f, o in zip(tiles, offsets[:-1]):
+        feat[:9, o:o + f.shape[1]] = f
+    return feat, offsets
+
+
+def _instances(rng, n, x, y, conic, op):
+    f = np.zeros((9, n), np.float32)
+    f[0], f[1] = x, y
+    f[2:5] = conic
+    f[5:8] = rng.uniform(size=(3, n))
+    f[8] = op
+    return f
+
+
+def _needle_conics(rng, n, long_var):
+    """Conics of covariances with variances 0.3 and long_var, rotated to
+    near 0, 45 and 90 degrees."""
+    theta = rng.choice([0.0, np.pi / 4, np.pi / 2], n) + rng.uniform(-0.05, 0.05, n)
+    cs, sn = np.cos(theta), np.sin(theta)
+    cxx = 0.3 * cs ** 2 + long_var * sn ** 2
+    cyy = 0.3 * sn ** 2 + long_var * cs ** 2
+    cxy = (long_var - 0.3) * cs * sn
+    det = cxx * cyy - cxy ** 2
+    return np.stack([cyy / det, -cxy / det, cxx / det])
+
+
+def _edge_inputs(kind, dev):
+    """Inputs at the edges of the compositors' design, (feat, offsets, gx,
+    gy): "order", one tile with ~12 chunks beside near-empty ones;
+    "gate_edge", opacities at 1/255 +- 4 ulp centred on pixels (only the
+    centre can pass the gate); "cull_edge", ellipses larger than a tile
+    and needle-thin ones straddling the warps' 16x8 blocks, each tile's
+    range holding all of them."""
+    rng = np.random.default_rng({"order": 10, "gate_edge": 11, "cull_edge": 12}[kind])
+    if kind == "order":
+        gx, gy = 4, 2
+        tiles = []
+        for t in range(gx * gy):
+            m = 1500 if t == 5 else int(rng.integers(0, 4))
+            ox, oy = (t % gx) * 32, (t // gx) * 32
+            conic = np.stack([rng.uniform(0.05, 0.5, m), np.zeros(m), rng.uniform(0.05, 0.5, m)])
+            tiles.append(_instances(rng, m, rng.uniform(ox, ox + 32, m),
+                                    rng.uniform(oy, oy + 32, m), conic,
+                                    rng.uniform(0.005, 0.05, m)))
+    elif kind == "gate_edge":
+        gx, gy = 2, 1
+        step = np.nextafter(np.float32(1 / 255), np.float32(1)) - np.float32(1 / 255)
+        tiles = []
+        for t in range(gx * gy):
+            pix = rng.choice(1024, 600, replace=False)
+            op = np.float32(1 / 255) + rng.integers(-4, 5, 600).astype(np.float32) * step
+            conic = np.stack([np.full(600, 50.0), np.zeros(600), np.full(600, 50.0)])
+            tiles.append(_instances(rng, 600, 32 * t + pix % 32, pix // 32, conic, op))
+    else:
+        gx, gy = 2, 2
+        big = _instances(rng, 60, rng.uniform(-60, 124, 60), rng.uniform(-60, 124, 60),
+                         np.stack([rng.uniform(1e-3, 5e-3, 60), rng.uniform(-5e-4, 5e-4, 60),
+                                   rng.uniform(1e-3, 5e-3, 60)]),
+                         rng.uniform(0.02, 0.1, 60))
+        bx = 16.0 * rng.integers(0, 5, 200) + rng.uniform(-0.5, 0.5, 200)
+        by = 8.0 * rng.integers(0, 9, 200) + rng.uniform(-0.5, 0.5, 200)
+        needle = _instances(rng, 200, bx, by, _needle_conics(rng, 200, rng.uniform(400, 3000, 200)),
+                            rng.uniform(0.3, 0.9, 200))
+        both = np.concatenate([big, needle], 1)
+        tiles = [both[:, rng.permutation(both.shape[1])] for _ in range(gx * gy)]
+    feat, offsets = _csr(tiles)
+    return to_torch(feat).to(dev), to_torch(offsets).to(dev), gx, gy
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+def test_compositors_are_deterministic(dev):
+    """Two launches of each redesigned compositor on the same inputs give
+    the same bits (K3 sums in a fixed order, with no atomics)."""
+    feat, offsets, gx, gy = _scene_features(dev)
+    fwd = blend.blend_fwd(feat, offsets, gx, gy)
+    assert torch.equal(_bits(fwd), _bits(blend.blend_fwd(feat, offsets, gx, gy)))
+    cot = _cotangent(fwd, 2)
+    bwd = blend.blend_bwd(feat, offsets, fwd, cot, gx, gy)
+    assert torch.equal(_bits(bwd), _bits(blend.blend_bwd(feat, offsets, fwd, cot, gx, gy)))
+
+
+@pytest.mark.parametrize("kind", ["order", "gate_edge", "cull_edge"])
+def test_compositors_on_edge_inputs(dev, kind):
+    feat, offsets, gx, gy = _edge_inputs(kind, dev)
+    got = blend.blend_fwd(feat, offsets, gx, gy)
+    want = blend.blend_fwd_plain(feat, offsets, gx, gy)
+    torch.cuda.synchronize()
+    assert torch.equal(got[..., 4], want[..., 4])
+    assert torch.allclose(got[..., 0:4], want[..., 0:4], atol=1e-4, rtol=0)
+    assert (want[..., 0:3] > 0).any()
+    if kind == "order":
+        chunks = want[:, 0, 4].tolist()
+        assert chunks[5] > 3 and max(chunks[:5] + chunks[6:]) <= 2
+    cot = _cotangent(got, 3)
+    dgot = blend.blend_bwd(feat, offsets, got, cot, gx, gy)
+    dwant = blend.blend_bwd_plain(feat, offsets, got, cot, gx, gy)
+    torch.cuda.synchronize()
+    assert_rows_close(dgot, dwant)
+    # (on the gate edge every kept pair sits at dx = dy = 0: rows x, y and
+    # the conic's are 0)
+    assert (dwant[[5, 6, 7, 8] if kind == "gate_edge" else slice(None)] != 0).any(dim=1).all()
+    assert torch.equal(_bits(dgot), _bits(blend.blend_bwd(feat, offsets, got, cot, gx, gy)))
