@@ -12,7 +12,7 @@ Phases (any failure raises and the script exits non-zero):
  1. print the card's name and power limit (nvidia-smi);
  2. build the hand-written kernels from the package's ``csrc/`` with nvcc,
     print ptxas' registers / shared memory / spills per source, and for the
-    redesigned compositors (K2, K3) their CTAs per SM;
+    redesigned kernels (K2, K3, the AMR compositors, K4) their CTAs per SM;
  3. make bench.py's scene in numpy (300,000 gaussians, SH degree 3, seed
     0), write it as a PLY snapshot with the port and load it back;
  4. serve four 1920x1088 view requests (bench.py's front camera and three
@@ -47,7 +47,10 @@ Phases (any failure raises and the script exits non-zero):
  9. on that view's inputs, hold the foveated kernels against their plain
     versions (each round; the levels kernel in its three decimation
     modes): rgb/final_T within 1e-3 on the rows rendered, zero rows above
-    a tile's level, chunks run equal on all but 0.1% of tiles;
+    a tile's level, chunks run equal on all but 0.1% of tiles; the levels
+    kernel alone launched heaviest tiles first and in tile order, twice
+    each, bit-identical to its wrapper's output, and its cost with every
+    tile at level 1 and at level 4;
 10. time them, and the foveated breakdown (``fps_foveated``: step 0, each
     round, each frame, the plain view), RITnet, and eye image -> frame;
 11. render a small scene on the card and on the CPU (plain versions) and
@@ -66,8 +69,13 @@ Phases (any failure raises and the script exits non-zero):
     against their plain versions (blend_bwd per row within 1e-3 of the
     row's largest value plus 1e-3 of each value, and exactly 0 on chunks
     past chunks_done, and a second launch bit-identical to the first;
-    segsum within 1e-5 of the row's largest value), and
-    time the train step, its phases, its peak memory and the kernels;
+    the per-gaussian reduction as the step runs it, ``segment_reduce_grads``,
+    and segsum on the id-order table within 1e-5 of the row's largest
+    value, the reduction bit-identical between two launches), time the
+    reduction as the step runs it, its kernel alone, the table route and
+    the library yardsticks (``torch.segment_reduce`` on the id-order
+    table, one ``index_add_`` over gauss_id), and time the train step, its
+    phases, its peak memory and the kernels;
 14. the CLIs on a synthesized COLMAP scene (train_regression_r04's: 24
     cameras at 256x256, GT rendered from a 3000-gaussian mixture), in one
     process through each module's ``main``: ``train`` for 1000 steps with
@@ -154,18 +162,21 @@ def make_eye(seed=0, height=EYE_H, width=EYE_W, gaze_uv=EYE_GAZE_UV):
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
-def cuda_ms(fn, reps=REPS, warmup=1):
-    """Median milliseconds of ``fn()`` over ``reps`` runs, CUDA events."""
+def cuda_ms(fn, reps=REPS, warmup=1, batch=1):
+    """Median milliseconds of ``fn()`` over ``reps`` runs, CUDA events;
+    with ``batch`` > 1 each run is ``batch`` calls back to back, divided
+    by ``batch`` (a short launch then waits for no host time of its own)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(batch):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / batch)
     return statistics.median(times)
 
 
@@ -357,34 +368,57 @@ def backward_checks(state, cam, target, bg, step):
             f"{[f'{m:.3g}' for m in rowmax[:, 0].tolist()]}; {int(past.sum())} instances "
             f"past chunks_done are 0; a second launch is bit-identical")
 
-        table, bounds = blend.id_order_table(k3, si.id_pos, b.gauss_start, b.gauss_count,
-                                             MAX_INSTANCES)
-        k4 = segsum.segment_sum_bounds(table, bounds)
-        k4_plain = segsum.segment_sum_bounds_plain(table, bounds)
+        # K4 as the step runs it: the id-order source, then one gather-and-
+        # sum over K3's records; and the table route beside it (K4 on the
+        # id-order table, which the step does not build)
+        red = (k3, si.id_pos, b.gauss_start, b.gauss_count, MAX_INSTANCES)
+        k4 = blend.segment_reduce_grads(*red)
+        k4_again = blend.segment_reduce_grads(*red)
+        src = blend.id_order_source(si.id_pos, MAX_INSTANCES)
+        bounds = blend.id_order_bounds(b.gauss_start, b.gauss_count)
+        k4_plain = segsum.segment_sum_gather_plain(k3, src, bounds)
+        table, _ = blend.id_order_table(*red)
+        k4_table = segsum.segment_sum_bounds(table, bounds)
+        k4_table_plain = segsum.segment_sum_bounds_plain(table, bounds)
         lengths = (bounds[1:] - bounds[:-1]).to(torch.int64)
         b0, b1 = int(bounds[0]), int(bounds[-1])
         data = table[:, b0:b1].T.contiguous()
         k4_lib = torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
+        gid = b.gauss_id[:n_live].to(torch.int64)
+        live_grads = k3[:, :n_live].contiguous()
+
+        def k4_index_add():
+            return torch.zeros_like(k4).index_add_(1, gid, live_grads)
+
         torch.cuda.synchronize()
-        k4_err = (k4 - k4_plain).abs()
         k4_rowmax = k4_plain.abs().amax(dim=1, keepdim=True)
-        if (k4_err > 1e-5 * k4_rowmax).any():
-            raise AssertionError(f"segsum disagrees with its plain version: per-row max "
-                                 f"|err| {k4_err.amax(dim=1).tolist()}")
+        k4_err = (k4 - k4_plain).abs()
+        k4_table_err = (k4_table - k4_table_plain).abs()
+        for name, err in (("segment_reduce_grads", k4_err), ("segsum (table)", k4_table_err)):
+            if (err > 1e-5 * k4_rowmax).any():
+                raise AssertionError(f"{name} disagrees with its plain version: per-row max "
+                                     f"|err| {err.amax(dim=1).tolist()}")
+        if not torch.equal(k4.view(torch.int32), k4_again.view(torch.int32)):
+            raise AssertionError("segment_reduce_grads: two launches on the same inputs differ")
         lib_err = float((k4_lib.T - k4_plain).abs().max())
-        log(f"segsum vs plain: max |err| {float(k4_err.max()):.3g} (row max up to "
-            f"{float(k4_rowmax.max()):.3g}); torch.segment_reduce vs plain {lib_err:.3g}; "
-            f"{lengths.numel()} segments over {b1 - b0} columns")
+        index_add_err = float((k4_index_add() - k4_plain).abs().max())
+        log(f"segment_reduce_grads vs plain: max |err| {float(k4_err.max()):.3g} (row max up "
+            f"to {float(k4_rowmax.max()):.3g}); a second launch is bit-identical; segsum on "
+            f"the id-order table vs plain {float(k4_table_err.max()):.3g}; "
+            f"torch.segment_reduce vs plain {lib_err:.3g}; index_add_ vs plain "
+            f"{index_add_err:.3g}; {lengths.numel()} segments over {b1 - b0} slots, "
+            f"{n_live} live instances")
 
         k3_ms = cuda_ms(lambda: blend.blend_bwd(feat, b.offsets, fwd, cot, gx, gy))
         k3_plain_ms = cuda_ms(lambda: blend.blend_bwd_plain(feat, b.offsets, fwd, cot, gx, gy))
-        # the kernel alone, as K2's (the output zero-filled beforehand)
-        k3_out = torch.zeros_like(k3)
+        # the kernel alone, as K2's (into records allocated beforehand)
+        k3_store = segsum.records(feat.shape[1], feat.device)
+        k3_out = segsum.record_rows(k3_store, blend.NGRAD)
 
         def k3_launch(order):
             blend.BLEND_BWD(feat.data_ptr(), feat.shape[1], b.offsets.data_ptr(),
                             order.data_ptr(), gx * gy, gx, fwd.data_ptr(), cot.data_ptr(),
-                            k3_out.data_ptr(), backend.stream_ptr(feat))
+                            k3_store.data_ptr(), backend.stream_ptr(feat))
 
         k3_orders = {"kernel_ms": blend.tile_order(fwd[:, 0, 4]),
                      "tile_order_ms": torch.arange(gx * gy, device=feat.device)}
@@ -393,9 +427,19 @@ def backward_checks(state, cam, target, bg, step):
             k3_kernel[key] = cuda_ms(lambda: k3_launch(order))
             if not torch.equal(k3_out.view(torch.int32), k3.view(torch.int32)):
                 raise AssertionError(f"blend_bwd launched in another order ({key}) differs")
-        k4_ms = cuda_ms(lambda: segsum.segment_sum_bounds(table, bounds))
-        k4_plain_ms = cuda_ms(lambda: segsum.segment_sum_bounds_plain(table, bounds))
+        k4_ms = cuda_ms(lambda: blend.segment_reduce_grads(*red))
+        # the kernel alone: its launches back to back, outputs made beforehand
+        k4_out = torch.empty_like(k4)
+        k4_kernel_ms = cuda_ms(lambda: segsum.SEGSUM(
+            k3.data_ptr(), blend.NGRAD, k3.shape[1], src.data_ptr(), src.shape[0],
+            bounds.data_ptr(), k4.shape[1], k4_out.data_ptr(), backend.stream_ptr(k3)),
+            batch=20)
+        k4_table_ms = cuda_ms(lambda: segsum.segment_sum_bounds(table, bounds))
+        k4_table_path_ms = cuda_ms(lambda: segsum.segment_sum_bounds(
+            *blend.id_order_table(*red)))
+        k4_plain_ms = cuda_ms(lambda: segsum.segment_sum_gather_plain(k3, src, bounds))
         k4_lib_ms = cuda_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths, axis=0))
+        k4_index_add_ms = cuda_ms(k4_index_add)
 
     # bounds from the work this run's front view needs. K3, over the chunks
     # before chunks_done: per (pixel, in-range instance) pair the forward's
@@ -418,16 +462,21 @@ def backward_checks(state, cam, target, bg, step):
     gate = k3_work["gate_lanes"]
     k3_gate_ms = 1e3 * max(k3_times["bytes"], (gate + 3 * kept + lanes // 1024) / SFU_OPS_PER_S,
                            (12 * gate + 34 * kept) / FP32_FLOPS_PER_S)
-    # K4: the columns inside the segments read once (9 rows), the bounds
+    # K4 as the step runs it: the live instances' 9 gradients read once,
+    # the order as one int32 sorted position per live instance, the bounds
     # read, the (9, N) sums written; one add per value read
-    k4_bytes = 4 * (table.shape[0] * (b1 - b0) + bounds.numel() + k4.numel())
+    k4_bytes = 4 * (9 * n_live + n_live + bounds.numel() + k4.numel())
     k4_bound = k4_bytes / HBM_BYTES_PER_S * 1e3
     log(f"blend_bwd: pairs in range {lanes}, power <= 0 {exp_lanes}, past the log-domain "
         f"pre-test {gate}, kept {kept}; recounted bound {k3_gate_ms:.4f} ms; "
         f"{k3_sfu} transcendentals {k3_sfu / SFU_OPS_PER_S * 1e3:.4f} ms, {k3_flops} fp32 "
         f"flops {k3_flops / FP32_FLOPS_PER_S * 1e3:.4f} ms, {k3_bytes / 1e6:.1f} MB "
         f"{k3_times['bytes'] * 1e3:.4f} ms")
-    log(f"segsum: {k4_bytes / 1e6:.1f} MB moved, bound {k4_bound:.4f} ms (bytes)")
+    log(f"segsum: {k4_bytes / 1e6:.1f} MB moved, bound {k4_bound:.4f} ms (bytes); "
+        f"segment_reduce_grads {k4_ms:.4f} ms, the gather-and-sum kernel alone "
+        f"{k4_kernel_ms:.4f} ms, on the id-order table {k4_table_ms:.4f} ms (with the "
+        f"table's fill and scatter {k4_table_path_ms:.4f} ms); torch.segment_reduce "
+        f"{k4_lib_ms:.4f} ms, index_add_ {k4_index_add_ms:.4f} ms")
 
     # the train step on the 300k model (front view): whole, by phase, memory
     args = (*train_lib.camera_arrays(cp), target, bg, True)
@@ -459,7 +508,9 @@ def backward_checks(state, cam, target, bg, step):
                       "bound_by": k3_by, "library_ms": None, "gate_bound_ms": k3_gate_ms,
                       **k3_kernel},
         "segsum": {"max_abs_err": float(k4_err.max()), "ms": k4_ms, "plain_ms": k4_plain_ms,
-                   "bound_ms": k4_bound, "bound_by": "bytes", "library_ms": k4_lib_ms},
+                   "bound_ms": k4_bound, "bound_by": "bytes", "library_ms": k4_lib_ms,
+                   "kernel_ms": k4_kernel_ms, "table_ms": k4_table_ms,
+                   "table_path_ms": k4_table_path_ms, "index_add_ms": k4_index_add_ms},
         "step": {"ms": step_ms, "split_ms": split, "peak_mib": peak_mib,
                  "held_mib": base_mib},
     }
@@ -615,7 +666,42 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
             level_err = max(level_err, compare(f"blend_levels {mode}", got, plain, valid))
             level_ms[mode] = cuda_ms(lambda: blend.blend_levels(*a, **kw))
             if not level_work:
-                level_work, level_args = work, (a, kw)
+                level_work, level_args, level_out = work, (a, kw), got
+        # the kernel alone (its launch order made beforehand), heaviest
+        # tiles first as the wrapper orders them and in tile order, twice
+        # each: the same bits as the wrapper's output
+        level_orders = {"kernel_ms": blend.levels_order(counts, st.tile_levels),
+                        "tile_order_ms": torch.arange(gx * gy, device=dev)}
+        k5_out = torch.empty_like(level_out)
+
+        def k5_launch(order, levels=st.tile_levels):
+            blend.BLEND_LEVELS(st.feat_soa.data_ptr(), st.feat_soa.shape[1],
+                               st.offsets.data_ptr(), counts.data_ptr(), levels.data_ptr(),
+                               order.data_ptr(), gx * gy, gx, 1, 1, 1, 1, 0,
+                               k5_out.data_ptr(), backend.stream_ptr(counts))
+
+        level_kernel = {}
+        for key, order in level_orders.items():
+            for _ in range(2):
+                k5_out.zero_()
+                k5_launch(order)
+                if not torch.equal(k5_out.view(torch.int32), level_out.view(torch.int32)):
+                    raise AssertionError(f"blend_levels launched in another order ({key}) or "
+                                         f"again differs")
+            level_kernel[key] = cuda_ms(lambda: k5_launch(order), batch=5)
+        # what a tile costs per instance at level 1 and at level 4: the
+        # kernel alone with every tile of the frame at one level, the same
+        # instance lists, in tile order
+        n_inst = int(counts.sum())
+        level_uniform = {}
+        for lvl in (1, 4):
+            uniform = torch.full_like(st.tile_levels, lvl)
+            ms = cuda_ms(lambda: k5_launch(level_orders["tile_order_ms"], uniform), batch=5)
+            level_uniform[f"level{lvl}_ms"] = ms
+            level_uniform[f"level{lvl}_ns_per_instance"] = 1e6 * ms / n_inst
+        log(f"blend_levels kernel alone: heaviest first {level_kernel['kernel_ms']:.4f} ms, "
+            f"tile order {level_kernel['tile_order_ms']:.4f} ms (bit-identical, twice each); "
+            f"every tile at level 1 / 4: {json.dumps(level_uniform)}")
         round_ms = [cuda_ms(lambda a=a, kw=kw: blend.blend_round(*a, **kw))
                     for a, kw in round_args]
         round_plain_ms = [cuda_ms(lambda a=a, kw=kw: blend.blend_round_plain(*a, **kw))
@@ -660,7 +746,8 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
          "replaces": REPLACES["blend_levels"],
          "launches": sum(launches[k]["blend_levels"] for k in frames),
          "max_abs_err": level_err, "ms": level_ms["(1,1,1,1)"], "plain_ms": level_plain_ms,
-         "bound_ms": level_bound[0], "bound_by": level_bound[1], "library_ms": None},
+         "bound_ms": level_bound[0], "bound_by": level_bound[1], "library_ms": None,
+         **level_kernel, **level_uniform, **ptxas_report(backend, "blend_amr")},
     ]
     summary = {"launches": launches, "fused_vs_five_step_err": fused_err,
                "instances": n_full, "predecimated_instances": n_pre, "timings": fps,
@@ -781,8 +868,9 @@ def main() -> int:
         for line in backend.build_log(stem).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {stem}: {line.strip()}")
-    build = {stem: ptxas_report(backend, stem) for stem in ("blend_fwd", "blend_bwd")}
-    log(f"redesigned compositors: {json.dumps(build)}")
+    build = {stem: ptxas_report(backend, stem)
+             for stem in ("blend_fwd", "blend_bwd", "blend_amr", "segsum")}
+    log(f"redesigned kernels: {json.dumps(build)}")
 
     # -- 3. the model, through a PLY snapshot --------------------------------
     t0 = time.perf_counter()
@@ -1036,7 +1124,7 @@ def main() -> int:
          **bwd["blend_bwd"], **build["blend_bwd"]},
         {"name": "segsum", "route": "cuda", "source": src.format("segsum"),
          "replaces": REPLACES["segsum"], "launches": train["launches"]["segsum"],
-         **bwd["segsum"]},
+         **bwd["segsum"], **build["segsum"]},
         *fov_kernels,
         {"name": "expand_rows", "route": "cuda", "source": src.format("expand_seg"),
          "replaces": REPLACES["expand_rows"], "launches": launches["expand_rows"],

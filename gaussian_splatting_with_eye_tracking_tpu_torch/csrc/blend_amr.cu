@@ -23,14 +23,23 @@
 // for K2. The TPU kernel stacked the rounds on the pixel-row axis of a
 // (L*256, 128) alpha matrix and branched on the level with four static
 // loop variants. Here one CTA of 256 threads owns one tile: thread i owns
-// subgrid pixel i of every round the tile renders, so a level-L tile gives
-// each thread L pixels. The chunk loop is a template on L (1..4) chosen
-// once per CTA (the level is block-uniform), which keeps the per-pixel
-// state in registers; the round kernel is the same template with L = 1 and
-// its fixed offset. Staging (cp.async, double-buffered), the log-domain
-// pre-test and the per-warp gate cull come with the shared loop: a warp's
-// pixel box is reduced from its lanes' pixels, 32 x 4 px for a round's
-// stride-2 subgrid rows. Tiles launch in index order.
+// one cell of the 16x16 subgrid, so its pixel in every round the tile
+// renders, and a level-L tile gives each thread L pixels. The chunk loop
+// is a template on L (1..4) chosen once per CTA (the level is
+// block-uniform), which keeps the per-pixel state in registers; the round
+// kernel is the same template with L = 1 and its fixed offset. Staging
+// (cp.async, double-buffered), the log-domain pre-test and the per-warp
+// gate cull come with the shared loop. The design for this card:
+//   - warp w owns the 8 x 4 cells at cell column 8 (w % 2), cell row
+//     4 (w / 2) (lane i: column i % 8, row i / 8), a 16 x 8 px box at
+//     every level, which the gate cull culls against as K2's 16 x 8 px
+//     warps (a warp of 32 consecutive cells would span 32 x 4 px); the
+//     output keeps the row-major subgrid layout (row = 16 cy + cx);
+//   - blend_levels launches heaviest tiles first: blockIdx.x maps
+//     through `order`, sorted by the wrapper by descending level x
+//     instances (a level-L tile does L times the pixel work);
+//   - at most 64 registers (__launch_bounds__(256, 4)): 4 CTAs per SM on
+//     every level's path.
 
 #include "composite.cuh"
 
@@ -39,14 +48,20 @@ namespace {
 constexpr int SUBW = TILE / 2;       // subgrid width
 constexpr int SUBPIX = SUBW * SUBW;  // pixels per round, one per thread
 constexpr int MAX_ROUNDS = 4;
-static_assert(SUBPIX == THREADS, "thread i owns subgrid pixel i");
+static_assert(SUBPIX == THREADS, "one subgrid cell per thread");
 
-// Thread i's pixel in each of rounds 0..NR-1 of tile t.
+// This thread's subgrid cell: warp w owns the 8 x 4 cells at (8 (w % 2),
+// 4 (w / 2)), lane i the cell (i % 8, i / 8) of them.
+__device__ __forceinline__ int cell_x() { return (threadIdx.x / 32 % 2) * 8 + threadIdx.x % 8; }
+__device__ __forceinline__ int cell_y() { return (threadIdx.x / 64) * 4 + threadIdx.x % 32 / 8; }
+__device__ __forceinline__ int cell() { return cell_y() * SUBW + cell_x(); }
+
+// This thread's pixel in each of rounds 0..NR-1 of tile t.
 template <int NR>
 __device__ __forceinline__ void round_pixels(int t, int grid_x, float (&px)[NR],
                                              float (&py)[NR]) {
-  const int ox = (t % grid_x) * TILE + 2 * (threadIdx.x % SUBW);
-  const int oy = (t / grid_x) * TILE + 2 * (threadIdx.x / SUBW);
+  const int ox = (t % grid_x) * TILE + 2 * cell_x();
+  const int oy = (t / grid_x) * TILE + 2 * cell_y();
 #pragma unroll
   for (int r = 0; r < NR; ++r) {
     px[r] = (float)(ox + ((r == 1 || r == 2) ? 1 : 0));
@@ -63,7 +78,7 @@ __device__ __forceinline__ void levels_tile(
   composite<NR>(s, feat, kp, o, n, step, scale_only, px, py, rows, SUBPIX);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 4)
 blend_round_kernel(const float* __restrict__ feat, int kp,
                    const int* __restrict__ offsets,
                    const int* __restrict__ counts, int grid_x, int offx,
@@ -71,24 +86,25 @@ blend_round_kernel(const float* __restrict__ feat, int kp,
   __shared__ Stage s;
   const int t = blockIdx.x;
   float px[1], py[1];
-  px[0] = (float)((t % grid_x) * TILE + 2 * (threadIdx.x % SUBW) + offx);
-  py[0] = (float)((t / grid_x) * TILE + 2 * (threadIdx.x / SUBW) + offy);
+  px[0] = (float)((t % grid_x) * TILE + 2 * cell_x() + offx);
+  py[0] = (float)((t / grid_x) * TILE + 2 * cell_y() + offy);
   composite<1>(s, feat, kp, offsets[t], counts[t], 1, false, px, py,
-               out + ((int64_t)t * SUBPIX + threadIdx.x) * OUTC, SUBPIX);
+               out + ((int64_t)t * SUBPIX + cell()) * OUTC, SUBPIX);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 4)
 blend_levels_kernel(const float* __restrict__ feat, int kp,
                     const int* __restrict__ offsets,
                     const int* __restrict__ counts,
-                    const int* __restrict__ levels, int grid_x, int4 steps,
+                    const int* __restrict__ levels,
+                    const int64_t* __restrict__ order, int grid_x, int4 steps,
                     int scale_only, float* __restrict__ out) {
   __shared__ Stage s;
-  const int t = blockIdx.x;
+  const int t = (int)order[blockIdx.x];
   const int o = offsets[t];
   const int n = counts[t];
   const int level = levels[t];  // block-uniform: one branch per CTA
-  float* rows = out + ((int64_t)t * MAX_ROUNDS * SUBPIX + threadIdx.x) * OUTC;
+  float* rows = out + ((int64_t)t * MAX_ROUNDS * SUBPIX + cell()) * OUTC;
   const bool so = scale_only != 0;
   int rendered = 0;
   switch (level) {
@@ -128,14 +144,22 @@ extern "C" int blend_round_launch(const void* feat, int kp, const void* offsets,
 
 extern "C" int blend_levels_launch(const void* feat, int kp, const void* offsets,
                                    const void* counts, const void* levels,
-                                   int num_tiles, int grid_x, int step1,
-                                   int step2, int step3, int step4,
+                                   const void* order, int num_tiles, int grid_x,
+                                   int step1, int step2, int step3, int step4,
                                    int scale_only, void* out, void* stream) {
   blend_levels_kernel<<<num_tiles, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)feat, kp, (const int*)offsets, (const int*)counts,
-      (const int*)levels, grid_x, make_int4(step1, step2, step3, step4),
-      scale_only, (float*)out);
+      (const int*)levels, (const int64_t*)order, grid_x,
+      make_int4(step1, step2, step3, step4), scale_only, (float*)out);
   return (int)cudaGetLastError();
+}
+
+// CTAs of blend_levels_kernel resident per SM, as the runtime computes it.
+extern "C" int blend_amr_blocks_per_sm() {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, blend_levels_kernel, THREADS, 0);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 extern "C" const char* error_string(int code) {

@@ -8,14 +8,16 @@
 // order (T,) of the tiles, the forward's (T, 1024, 8) output (col 3
 // final_T, col 4 chunks_done, col 5 logT) and the (T, 1024, 8) cotangent
 // (cols 0-2 dL/dcolor without the background, col 3 dL/dfinal_T). Output
-// (9, kp): at sorted position i of each tile's range, dL/d[x, y, conic a,
-// b, c, r, g, b, opacity]; the caller zero-fills it, and positions past
-// offsets[T], or whose instance no pixel kept, stay untouched.
+// kp records of 12 floats (48 bytes; segsum.cu's gather reads one in two
+// 32-byte sectors): record i holds dL/d[x, y, conic a, b, c, r, g, b,
+// opacity] of sorted position i, then 3 zeros. Every record is written:
+// zeros where no pixel kept the instance, on chunks past chunks_done and
+// outside every tile's range, so the output needs no fill.
 // What it reproduces of the TPU kernel:
 //   - chunks aligned to GLOBAL multiples of 128, lanes outside [o, o+n)
 //     masked through log(op) = -inf, the forward's alpha gate;
-//   - chunks at or past chunks_done get zero gradient (they are skipped:
-//     the output is zero-filled);
+//   - chunks at or past chunks_done get zero gradient (they are not
+//     replayed; their records are written as zeros);
 //   - transmittance rebuilt in log space from the forward's final logT
 //     (cur -= log(1 - alpha) walking back), never by division by final_T;
 //   - the suffix accumulator S seeded with dL/dT_final * final_T;
@@ -64,6 +66,15 @@ namespace {
 constexpr int PIX = TILE * TILE;
 constexpr int PPT = PIX / THREADS;  // pixels per thread
 constexpr int NGRAD = 9;
+constexpr int REC = 12;  // floats per output record
+
+__device__ __forceinline__ void store_record(float* __restrict__ dfeat, int id,
+                                             const float (&v)[NGRAD]) {
+  float4* dst = reinterpret_cast<float4*>(dfeat + (int64_t)id * REC);
+  dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+  dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+  dst[2] = make_float4(v[8], 0.f, 0.f, 0.f);
+}
 
 // Sum acc[0..8] over the warp and store the sums to part[0..8]: acc[k] for
 // k < 8 lands in lane 4k (lanes 4k..4k+3 hold it), acc[8] in lane 0.
@@ -215,23 +226,42 @@ blend_bwd_kernel(const float* __restrict__ feat, int kp,
           for (int k = 0; k < NGRAD; ++k) sum[k] += s_part[w][l][k];
         }
       }
-      if (any) {  // only lanes in [o, o+n) can be hit (log op = -inf elsewhere)
-        const float a = f[2][l], b = f[3][l], c = f[4][l], op = f[8][l];
-        const float m0 = sum[0], ex = sum[1], ey = sum[2];
-        dfeat[id] = -(a * ex + b * ey);
-        dfeat[(int64_t)1 * kp + id] = -(c * ey + b * ex);
-        dfeat[(int64_t)2 * kp + id] = -0.5f * sum[3];
-        dfeat[(int64_t)3 * kp + id] = -sum[4];
-        dfeat[(int64_t)4 * kp + id] = -0.5f * sum[5];
-        dfeat[(int64_t)5 * kp + id] = sum[6];
-        dfeat[(int64_t)6 * kp + id] = sum[7];
-        dfeat[(int64_t)7 * kp + id] = sum[8];
-        dfeat[(int64_t)8 * kp + id] = m0 / fmaxf(op, 1e-30f);
+      if (id >= o && id < o + n) {  // only these lanes can be hit (log op = -inf elsewhere)
+        float g[NGRAD];
+        if (any) {
+          const float a = f[2][l], b = f[3][l], c = f[4][l], op = f[8][l];
+          const float m0 = sum[0], ex = sum[1], ey = sum[2];
+          g[0] = -(a * ex + b * ey);
+          g[1] = -(c * ey + b * ex);
+          g[2] = -0.5f * sum[3];
+          g[3] = -sum[4];
+          g[4] = -0.5f * sum[5];
+          g[5] = sum[6];
+          g[6] = sum[7];
+          g[7] = sum[8];
+          g[8] = m0 / fmaxf(op, 1e-30f);
+        } else {
+#pragma unroll
+          for (int k = 0; k < NGRAD; ++k) g[k] = 0.f;
+        }
+        store_record(dfeat, id, g);
       }
     }
     cp_async_wait_all();
     __syncthreads();  // before the next chunk's prepare; publishes its copy
   }
+
+  // zero records: this tile's range past chunks_done, and (spread over the
+  // CTAs) the positions outside every tile's range
+  float zero[NGRAD];
+#pragma unroll
+  for (int k = 0; k < NGRAD; ++k) zero[k] = 0.f;
+  for (int id = max(o, start + n_done * CHUNK) + threadIdx.x; id < o + n; id += THREADS)
+    store_record(dfeat, id, zero);
+  const int head = offsets[0], tail = offsets[gridDim.x];
+  for (int id = blockIdx.x * THREADS + threadIdx.x; id < head + (kp - tail);
+       id += gridDim.x * THREADS)
+    store_record(dfeat, id < head ? id : tail + (id - head), zero);
 }
 
 }  // namespace

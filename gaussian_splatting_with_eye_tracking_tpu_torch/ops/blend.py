@@ -94,8 +94,8 @@ BLEND_ROUND = backend.CudaKernel(
 BLEND_LEVELS = backend.CudaKernel(
     "blend_levels", "blend_amr", "blend_levels_launch",
     [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+     ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
 )
 
 # tiles composited together by the plain versions (bounds their (B, P,
@@ -157,6 +157,12 @@ def tile_order(work: torch.Tensor) -> torch.Tensor:
     descending ``work`` per tile, ties in tile order, so that the heaviest
     tiles start in the first wave. The outputs do not depend on it."""
     return torch.argsort(work, descending=True, stable=True)
+
+
+def levels_order(counts: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """``blend_levels``' launch order: ``tile_order`` of level x instances
+    per tile (a level-L tile composites L pixels per thread)."""
+    return tile_order(levels * counts)
 
 
 def gate_box(x, y, a, b, c, opacity):
@@ -439,9 +445,11 @@ def blend_levels(feat_soa: torch.Tensor, offsets: torch.Tensor, counts: torch.Te
     out = torch.empty((num_tiles, 4 * (TILE // 2) ** 2, OUTC), dtype=torch.float32,
                       device=feat_soa.device)
     if num_tiles > 0:
+        order = levels_order(counts, levels)
         BLEND_LEVELS(feat_soa.data_ptr(), feat_soa.shape[1], offsets.data_ptr(),
-                     counts.data_ptr(), levels.data_ptr(), num_tiles, grid_x, *decimation,
-                     int(scale_only), out.data_ptr(), backend.stream_ptr(feat_soa))
+                     counts.data_ptr(), levels.data_ptr(), order.data_ptr(), num_tiles,
+                     grid_x, *decimation, int(scale_only), out.data_ptr(),
+                     backend.stream_ptr(feat_soa))
     return out
 
 
@@ -525,7 +533,9 @@ def blend_bwd(feat_soa: torch.Tensor, offsets: torch.Tensor, fwd_out: torch.Tens
     feat_soa and offsets as ``blend_fwd`` takes them, ``fwd_out`` its
     output and ``cot`` that output's cotangent, both (T, TILE*TILE, OUTC)
     float32. Returns (NGRAD, K') per-instance gradients at sorted
-    positions; see ``blend_bwd_plain``."""
+    positions; see ``blend_bwd_plain``. On CUDA the result is a view of
+    (K', segsum.REC) records (``segsum.record_rows``), the layout
+    ``segment_reduce_grads`` gathers from."""
     if feat_soa.device.type == "cpu":
         return blend_bwd_plain(feat_soa, offsets, fwd_out, cot, grid_x, grid_y)
     for name, x, dtype in (("feat_soa", feat_soa, torch.float32),
@@ -545,14 +555,16 @@ def blend_bwd(feat_soa: torch.Tensor, offsets: torch.Tensor, fwd_out: torch.Tens
         if x.shape != (num_tiles, TILE * TILE, OUTC):
             raise ValueError(f"{name} shape {tuple(x.shape)} != "
                              f"({num_tiles}, {TILE * TILE}, {OUTC})")
-    dfeat = torch.zeros((NGRAD, feat_soa.shape[1]), dtype=torch.float32,
-                        device=feat_soa.device)
+    # the kernel writes every record, zeros included
+    storage = segsum.records(feat_soa.shape[1], feat_soa.device)
     if num_tiles > 0:
         order = tile_order(fwd_out[:, 0, 4])  # chunks the forward ran
         BLEND_BWD(feat_soa.data_ptr(), feat_soa.shape[1], offsets.data_ptr(),
                   order.data_ptr(), num_tiles, grid_x, fwd_out.data_ptr(), cot.data_ptr(),
-                  dfeat.data_ptr(), backend.stream_ptr(feat_soa))
-    return dfeat
+                  storage.data_ptr(), backend.stream_ptr(feat_soa))
+    else:
+        storage.zero_()
+    return segsum.record_rows(storage, NGRAD)
 
 
 def segment_reduce_grads(dfeat: torch.Tensor, id_pos: torch.Tensor,
@@ -561,37 +573,53 @@ def segment_reduce_grads(dfeat: torch.Tensor, id_pos: torch.Tensor,
     """Per-gaussian sums (NGRAD, N) of the per-instance gradients.
 
     Port of ``_segment_reduce_grads``. The JAX function sorts the gradient
-    columns by their gaussian-id tag; here sorted instance i moves to its
-    id-order position ``id_pos[i]`` (``binning.SortedInstances``), a
-    permutation with no sort, and K4 sums gaussian g's run
-    [gauss_start[g], gauss_start[g] + gauss_count[g]). Slots past the live
-    instances go to a trash column past every bound. Where no instance
-    was dropped for ``max_live`` these are JAX's bounds
-    ``min(gauss_start ‖ last, n_live)``; where some were, the dropped
-    positions hold zeros, so each gaussian still sums exactly its own
-    rendered instances."""
-    return segsum.segment_sum_bounds(*id_order_table(
-        dfeat, id_pos, gauss_start, gauss_count, max_instances))
+    columns by their gaussian-id tag; here gaussian g sums the id-order
+    slots [gauss_start[g], gauss_start[g] + gauss_count[g]), each slot
+    reading the sorted instance that ``id_pos`` (``binning.SortedInstances``)
+    put there (``id_order_source``), in one gather-and-sum launch of K4
+    (``segsum.segment_sum_gather``). Where no instance was dropped for
+    ``max_live`` these are JAX's bounds ``min(gauss_start ‖ last,
+    n_live)``; where some were, their slots add nothing, so each gaussian
+    still sums exactly its own rendered instances."""
+    return segsum.segment_sum_gather(dfeat, id_order_source(id_pos, max_instances),
+                                     id_order_bounds(gauss_start, gauss_count))
 
 
-def id_order_table(dfeat, id_pos, gauss_start, gauss_count, max_instances):
-    """The segment sum's inputs: the per-instance gradients moved to
-    gaussian-id order, (NGRAD, max_instances + 1) with the trash column
-    last, and the (N+1,) int32 bounds gauss_start ‖ last."""
-    table = dfeat.new_zeros((dfeat.shape[0], max_instances + 1))
-    table[:, id_pos] = dfeat[:, :id_pos.shape[0]]
+def id_order_source(id_pos: torch.Tensor, max_instances: int) -> torch.Tensor:
+    """(max_instances,) int32: for each gaussian-id-order slot the sorted
+    position of its instance, -1 where none was kept (dropped for
+    ``max_live``, or past the kept instances). The inverse of ``id_pos``,
+    by one scatter (its trash slot ``max_instances`` is cut off)."""
+    src = torch.full((max_instances + 1,), -1, dtype=torch.int32, device=id_pos.device)
+    src[id_pos] = torch.arange(id_pos.shape[0], dtype=torch.int32, device=id_pos.device)
+    return src[:max_instances]
+
+
+def id_order_bounds(gauss_start: torch.Tensor, gauss_count: torch.Tensor) -> torch.Tensor:
+    """The (N+1,) int32 segment bounds gauss_start ‖ last of the id order."""
     if gauss_start.numel():
         last = gauss_start[-1:] + gauss_count[-1:]
     else:
         last = gauss_start.new_zeros(1)
-    return table, torch.cat([gauss_start, last]).to(torch.int32)
+    return torch.cat([gauss_start, last]).to(torch.int32)
+
+
+def id_order_table(dfeat, id_pos, gauss_start, gauss_count, max_instances):
+    """The per-instance gradients moved to gaussian-id order as a table,
+    (NGRAD, max_instances + 1) with the trash column last, and the id
+    order's bounds: the inputs of ``segsum.segment_sum_bounds`` for the
+    same sums as ``segment_reduce_grads`` (the profilers time this route
+    beside it)."""
+    table = dfeat.new_zeros((dfeat.shape[0], max_instances + 1))
+    table[:, id_pos] = dfeat[:, :id_pos.shape[0]]
+    return table, id_order_bounds(gauss_start, gauss_count)
 
 
 class Splat(torch.autograd.Function):
     """Differentiable binning + tile compositing: the ``splat_pallas``
     contract. Forward: ``build_sorted_instances`` (K1) and K2; returns
     (tiles (T, P, OUTC), num_instances, num_enumerated, overflow).
-    Backward: K3, the permutation into gaussian-id order, K4; returns
+    Backward: K3 and the per-gaussian gather-and-sum (K4); returns
     d xy, d conic, d rgb, d opacity per gaussian (nothing for the binning
     inputs tiles_touched, rect_min, rect_max, cull_thr and depths)."""
 

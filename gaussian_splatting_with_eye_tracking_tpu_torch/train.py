@@ -325,8 +325,9 @@ def _try_tensorboard(model_path):
     return SummaryWriter(model_path)
 
 
-def main(argv=None):
-    """Parse ``argv`` and train; returns ``training``'s (scene, state,
+def main(argv=None, random_order_seed=0):
+    """Parse ``argv`` and train with ``random_order_seed`` (the camera
+    order and the split draws); returns ``training``'s (scene, state,
     log)."""
     parser = ArgumentParser(description="Training script parameters")
     add_config_args(parser, ModelConfig(), "Model Parameters")
@@ -358,6 +359,7 @@ def main(argv=None):
         set(args.checkpoint_iterations),
         args.start_checkpoint,
         quiet=args.quiet,
+        random_order_seed=random_order_seed,
     )
     print("\nTraining complete.")
     return out

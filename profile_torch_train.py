@@ -12,9 +12,14 @@ chip_smoke.py trains it. Prints, as JSON lines:
 
 - ``phases``: the median CUDA-event time of the whole step and of its
   phases (forward, loss, backward, optimizer) over ``chip_smoke.REPS``
-  steps, and of the backward's parts run on their own (the backward
-  compositor kernel, the permutation into gaussian-id order, the segment
-  sum kernel);
+  steps, and of the backward's parts run on their own: the backward
+  compositor kernel; the per-gaussian reduction as the step runs it
+  (``segment_reduce_grads``), its id-order source and its gather-and-sum
+  kernel; and the table route beside it (the permutation into a
+  gaussian-id-order table, also as its zero fill and its scatter apart,
+  and the segment sum kernel on that table);
+- ``segments``: the front view's per-gaussian instance counts (segment
+  lengths of the reduction): empty ones, mean, quantiles and the largest;
 - ``profile``: from torch.profiler over ``chip_smoke.REPS`` steps, the
   wall and device time per step, the device's idle share (1 - device time
   / wall time), and the device time per kernel name (top 20).
@@ -87,9 +92,34 @@ def main():
     phases["backward: id-order permutation"] = cs.cuda_ms(
         lambda: blend.id_order_table(dfeat, si.id_pos, b.gauss_start, b.gauss_count,
                                      cs.MAX_INSTANCES), warmup=2)
+    phases["backward: blend_bwd output zero fill"] = cs.cuda_ms(
+        lambda: torch.zeros_like(dfeat), warmup=2)
+    phases["backward: id-order zero fill"] = cs.cuda_ms(
+        lambda: dfeat.new_zeros((dfeat.shape[0], cs.MAX_INSTANCES + 1)), warmup=2)
+
+    def scatter():
+        table[:, si.id_pos] = dfeat[:, :si.id_pos.shape[0]]
+
+    phases["backward: id-order scatter"] = cs.cuda_ms(scatter, warmup=2)
     phases["backward: segsum kernel"] = cs.cuda_ms(
         lambda: segsum.segment_sum_bounds(table, bounds), warmup=2)
+    red = (dfeat, si.id_pos, b.gauss_start, b.gauss_count, cs.MAX_INSTANCES)
+    src = blend.id_order_source(si.id_pos, cs.MAX_INSTANCES)
+    phases["backward: segment_reduce_grads"] = cs.cuda_ms(
+        lambda: blend.segment_reduce_grads(*red), warmup=2)
+    phases["backward: id-order source"] = cs.cuda_ms(
+        lambda: blend.id_order_source(si.id_pos, cs.MAX_INSTANCES), warmup=2)
+    phases["backward: segsum gather kernel"] = cs.cuda_ms(
+        lambda: segsum.segment_sum_gather(dfeat, src, bounds), warmup=2)
     print(json.dumps({"phases": phases}), flush=True)
+    counts = b.gauss_count.to(torch.float64)
+    live = counts[counts > 0]
+    q = torch.quantile(live, torch.tensor([0.5, 0.9, 0.99, 0.999], dtype=torch.float64,
+                                          device=live.device)).tolist()
+    print(json.dumps({"segments": {
+        "gaussians": counts.numel(), "empty": int((counts == 0).sum()),
+        "instances": int(counts.sum()), "mean_nonempty": float(live.mean()),
+        "p50_p90_p99_p999": q, "max": int(counts.max())}}), flush=True)
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

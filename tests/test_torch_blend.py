@@ -229,3 +229,13 @@ def test_gate_box_holds_every_kept_pixel(kind):
     well = live & (kappa < 10)
     assert well.any()
     assert (half[well] <= 1.02 * exact[well] + 0.05).all()
+
+
+def test_levels_order_heaviest_first():
+    """What the fused foveated wrapper sorts by: level x instances per
+    tile, descending, equal work in tile order."""
+    counts = torch.tensor([100, 40, 0, 50, 400, 25], dtype=torch.int32)
+    levels = torch.tensor([1, 4, 4, 2, 1, 4], dtype=torch.int32)
+    order = tblend.levels_order(counts, levels)
+    assert order.dtype == torch.int64
+    assert order.tolist() == [4, 1, 0, 3, 5, 2]

@@ -13,6 +13,8 @@ gradient tolerance), and per row 3e-4 of the row's largest value plus
 (the conic rows of the multi-chunk scene, where the TPU kernel forms the
 sums from tile-local moment matmuls), elsewhere below 6e-5."""
 
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,10 +29,11 @@ from tests.helpers import make_camera, make_random_gaussians
 from tests.torch_helpers import assert_close, to_torch
 
 
+@functools.lru_cache
 def _scene(chunk):
     """A real scene's instance list: several chunks per tile, ranges not
     chunk-aligned. Returns the feature array, offsets and the JAX
-    preprocess output."""
+    preprocess output (made once per chunk size)."""
     cam = make_camera(64, 64)
     means, scales, quats, op, sh = make_random_gaussians(500, seed=1)
     prep = preprocess(means, scales, quats, op, sh, 0, cam)
@@ -182,3 +185,48 @@ def test_blend_bwd_wrapper_on_cpu_is_plain():
     np.testing.assert_array_equal(tblend.blend_bwd(f, o, fwd, cot, 1, 1).numpy(),
                                   tblend.blend_bwd_plain(f, o, fwd, cot, 1, 1).numpy())
     assert tblend.BLEND_BWD.launches == before
+
+
+def test_segment_reduce_grads_with_dropped_instances():
+    """``max_live`` below the kept instances drops the sorted tail: each
+    gaussian still sums exactly its own rendered instances (a direct sum
+    over gauss_id), empty segments give 0, and JAX's
+    ``_segment_reduce_grads`` on the same gradients agrees on every
+    gaussian below the first one that lost an instance (past it, JAX's
+    bounds assume the dropped instances are the id-order tail)."""
+    _, _, prep, _ = _scene(32)
+    args = [to_torch(x) for x in (prep.means2d, prep.conics, prep.rgb, prep.opacities,
+                                  prep.tiles_touched, prep.rect_min, prep.rect_max,
+                                  prep.cull_thr, prep.depths)]
+    args[4][::7] = 0  # every seventh gaussian culled: empty segments
+    kept = int(tbin.build_sorted_instances(*args, 2, 2, 1 << 12, tile_px=32)
+               .binning.offsets[-1])
+    si = tbin.build_sorted_instances(*args, 2, 2, 1 << 12, tile_px=32, max_live=kept - 150)
+    b = si.binning
+    n_live = int(b.offsets[-1])
+    assert n_live == kept - 150 and bool(b.overflow)
+    rng = np.random.default_rng(4)
+    grads = np.zeros((tblend.NGRAD, -(-n_live // 128) * 128 + 128), np.float32)
+    grads[:, :n_live] = rng.normal(size=(tblend.NGRAD, n_live))
+    got = tblend.segment_reduce_grads(to_torch(grads), si.id_pos, b.gauss_start,
+                                      b.gauss_count, 1 << 12).numpy()
+    gid = b.gauss_id[:n_live].numpy().astype(np.int64)
+    n = b.gauss_start.shape[0]
+    want = np.zeros((tblend.NGRAD, n))
+    np.add.at(want.T, gid, grads[:, :n_live].T.astype(np.float64))
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    empty = b.gauss_count.numpy() == 0
+    assert empty.any() and not got[:, empty].any()
+    # JAX's reduction on the same sorted gradients, tagged with their ids
+    raw = np.zeros((16, grads.shape[1]), np.float32)
+    raw[:tblend.NGRAD] = grads
+    raw[tblend.GID_ROW, :n_live] = gid
+    jax_sums = np.asarray(jpb._segment_reduce_grads(
+        jnp.asarray(raw), jnp.asarray([n_live], jnp.int32),
+        jnp.asarray(b.offsets.numpy()), jnp.asarray(b.gauss_start.numpy()),
+        jnp.asarray(b.gauss_count.numpy()))).T
+    lost = np.bincount(gid, minlength=n) < b.gauss_count.numpy()
+    first = int(np.argmax(lost))
+    assert lost.any() and first > 0
+    np.testing.assert_allclose(got[:, :first], jax_sums[:, :first], atol=1e-5, rtol=1e-5)
+    assert not np.allclose(got, jax_sums, atol=1e-5, rtol=1e-5)

@@ -474,3 +474,94 @@ def test_compositors_on_edge_inputs(dev, kind):
     # the conic's are 0)
     assert (dwant[[5, 6, 7, 8] if kind == "gate_edge" else slice(None)] != 0).any(dim=1).all()
     assert torch.equal(_bits(dgot), _bits(blend.blend_bwd(feat, offsets, got, cot, gx, gy)))
+
+
+def _gather_case(kind, dev):
+    """Records, src and bounds as the train step hands them to the
+    gather-and-sum: segments of 0-9 slots (half empty), one of 5000
+    slots ("long"), none at all ("all_empty"), or a fifth of the slots
+    dropped (src -1, "dropped")."""
+    rng = np.random.default_rng(len(kind))
+    n = 300_001
+    lengths = rng.integers(0, 10, n) * (rng.uniform(size=n) > 0.5)
+    if kind == "long":
+        lengths[n // 3] = 5000
+    if kind == "all_empty":
+        lengths[:] = 0
+    bounds = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    total = int(bounds[-1])
+    k = total + 256
+    src = rng.permutation(k)[:total].astype(np.int32)
+    if kind == "dropped":
+        src[rng.uniform(size=total) < 0.2] = -1
+    storage = segsum.records(k, dev)
+    storage.copy_(to_torch(rng.normal(size=(k, segsum.REC)).astype(np.float32)))
+    return (segsum.record_rows(storage, blend.NGRAD), to_torch(src).to(dev),
+            to_torch(bounds).to(dev), lengths)
+
+
+@pytest.mark.parametrize("kind", ["typical", "long", "all_empty", "dropped"])
+def test_segsum_gather_kernel_matches_plain(dev, kind):
+    """The train step's gather-and-sum against its plain version (1e-5 of
+    each row's largest value), empty segments exactly 0, two launches
+    bit-identical, and the same bits from a contiguous (non-record)
+    copy of the values."""
+    values, src, bounds, lengths = _gather_case(kind, dev)
+    before = segsum.SEGSUM.launches
+    got = segsum.segment_sum_gather(values, src, bounds)
+    assert segsum.SEGSUM.launches == before + 1
+    want = segsum.segment_sum_gather_plain(values, src, bounds)
+    torch.cuda.synchronize()
+    assert got.shape == (blend.NGRAD, lengths.shape[0])
+    assert not got[:, torch.from_numpy(lengths == 0).to(dev)].any()
+    if kind != "all_empty":
+        assert_rows_close(got, want, rel_max=1e-5, rtol=0)
+    assert torch.equal(_bits(got), _bits(segsum.segment_sum_gather(values, src, bounds)))
+    assert torch.equal(_bits(got),
+                       _bits(segsum.segment_sum_gather(values.contiguous(), src, bounds)))
+
+
+def test_segment_reduce_grads_kernel_with_dropped_instances(dev):
+    """The whole reduction as the train step runs it (K3's records, the
+    id-order source, the gather-and-sum) on a real scene whose max_live
+    drops 300 instances: each gaussian sums exactly its own rendered
+    instances, as the CPU computes them; bit-identical between launches."""
+    g = [x.to(dev) for x in random_scene(3000, seed=3, sh_degree=1)]
+    prep = preprocess(*g, 1, front_camera(256, 192, dev))
+    args = (prep.means2d, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched,
+            prep.rect_min, prep.rect_max, prep.cull_thr, prep.depths, 8, 6)
+    kept = int(binning.build_sorted_instances(*args, 1 << 16, 32).binning.offsets[-1])
+    si = binning.build_sorted_instances(*args, 1 << 16, 32, max_live=kept - 300)
+    b = si.binning
+    feat = blend.feat_soa_from_rows(si.feat_rows, 128)
+    fwd = blend.blend_fwd(feat, b.offsets, 8, 6)
+    dfeat = blend.blend_bwd(feat, b.offsets, fwd, _cotangent(fwd, 4), 8, 6)
+    red = (si.id_pos, b.gauss_start, b.gauss_count, 1 << 16)
+    got = blend.segment_reduce_grads(dfeat, *red)
+    again = blend.segment_reduce_grads(dfeat, *red)
+    n_live = int(b.offsets[-1])
+    want = torch.zeros(got.shape, dtype=torch.float64)
+    want.index_add_(1, b.gauss_id[:n_live].cpu().to(torch.int64),
+                    dfeat[:, :n_live].cpu().to(torch.float64))
+    cpu = blend.segment_reduce_grads(dfeat.cpu(), *(x.cpu() for x in red[:3]), 1 << 16)
+    torch.cuda.synchronize()
+    assert bool(b.overflow) and n_live == kept - 300
+    assert_rows_close(got.cpu(), want.to(torch.float32), rel_max=1e-5, rtol=0)
+    assert_rows_close(got.cpu(), cpu, rel_max=1e-5, rtol=0)
+    assert torch.equal(_bits(got), _bits(again))
+
+
+def test_levels_kernel_launch_orders_bit_identical(dev):
+    """The fused foveated kernel launched heaviest tiles first (as its
+    wrapper orders them) and in tile order, twice each: the same bits."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import backend
+
+    feat, offsets, counts, levels, gx, gy = _foveated_inputs(dev)
+    want = blend.blend_levels(feat, offsets, counts, levels, gx, gy, decimation=(4, 2, 1, 1))
+    out = torch.empty_like(want)
+    for order in (blend.levels_order(counts, levels), torch.arange(gx * gy, device=dev)) * 2:
+        out.zero_()
+        blend.BLEND_LEVELS(feat.data_ptr(), feat.shape[1], offsets.data_ptr(),
+                           counts.data_ptr(), levels.data_ptr(), order.data_ptr(), gx * gy,
+                           gx, 4, 2, 1, 1, 0, out.data_ptr(), backend.stream_ptr(feat))
+        assert torch.equal(_bits(out), _bits(want))

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
@@ -107,3 +108,25 @@ def test_segment_sum_wrapper_on_cpu_counts_nothing():
     got = tseg.segment_sum_bounds(to_torch(table), to_torch(bounds))
     assert_equal(got, tseg.segment_sum_bounds_plain(to_torch(table), to_torch(bounds)).numpy())
     assert tseg.SEGSUM.launches == before
+
+
+def test_segment_sum_gather_plain_matches_jax():
+    """The gather route: slot j reads column src[j] of the values (none
+    where src[j] < 0), as JAX's segment sum of the gathered table; a
+    record view of the same values gives the same bits."""
+    table, bounds = _case("empty_and_repeated")
+    rng = np.random.default_rng(5)
+    s = int(bounds[-1])
+    src = rng.permutation(table.shape[1])[:s].astype(np.int32)
+    src[rng.uniform(size=s) < 0.1] = -1
+    gathered = np.where(src >= 0, table[:, np.maximum(src, 0)], 0).astype(np.float32)
+    want = np.asarray(jseg.segment_sum_bounds(jnp.asarray(gathered), jnp.asarray(bounds),
+                                              interpret=True))
+    values = to_torch(table[:9])
+    got = tseg.segment_sum_gather(values, to_torch(src), to_torch(bounds))
+    assert_equal(got, want[:9])
+    storage = tseg.records(table.shape[1], "cpu")
+    storage[:, :9] = values.T
+    rec = tseg.record_rows(storage, 9)
+    assert rec.stride() == (1, tseg.REC) and torch.equal(rec, values)
+    assert_equal(tseg.segment_sum_gather(rec, to_torch(src), to_torch(bounds)), want[:9])
