@@ -28,7 +28,8 @@ Phases (any failure raises and the script exits non-zero):
     slot -> column map, bit-exact against its plain version and against
     the segment expand's output;
  6. time each view and each kernel with CUDA events (warm-up, then the
-    median of 10), beside the plain versions and the library yardstick;
+    median of 10), beside the plain versions and the library yardstick
+    (the segment expand also as a share of its bytes bound);
     K2 (and K3 in phase 13) also as the kernel's launch alone, its launch
     order made beforehand, heaviest tiles first and in tile order (both
     bit-identical to the wrapper's output);
@@ -45,14 +46,19 @@ Phases (any failure raises and the script exits non-zero):
     frame, show ``blend_round`` 4 times per 5-step frame, ``blend_levels``
     once per fused frame, and no other compositor;
  9. on that view's inputs, hold the foveated kernels against their plain
-    versions (each round; the levels kernel in its three decimation
+    versions (each round as the 5-step frame launches it, in its one
+    launch order and split; the levels kernel in its three decimation
     modes): rgb/final_T within 1e-3 on the rows rendered, zero rows above
-    a tile's level, chunks run equal on all but 0.1% of tiles; the levels
-    kernel alone launched heaviest tiles first and in tile order, twice
-    each, bit-identical to its wrapper's output, and its cost with every
-    tile at level 1 and at level 4;
-10. time them, and the foveated breakdown (``fps_foveated``: step 0, each
-    round, each frame, the plain view), RITnet, and eye image -> frame;
+    a tile's level, chunks run equal on all but 0.1% of tiles; each round
+    at every split (final_T, chunks run and logT bit-identical to one CTA
+    per tile) and in tile order (bit-identical); the levels kernel alone
+    launched heaviest tiles first and in tile order, twice each,
+    bit-identical to its wrapper's output, and its cost with every tile
+    at level 1 and at level 4;
+10. time them (each round with its gated-tile count, at every split and
+    in tile order, the four rounds' total, the frame's order), and the
+    foveated breakdown (``fps_foveated``: step 0, each round, each frame,
+    the plain view), RITnet, and eye image -> frame;
 11. render a small scene on the card and on the CPU (plain versions) and
     compare them (atol 3e-4 / rtol 1e-3, integer outputs exact), then its
     gradients with respect to every input (atol 2e-3 / rtol 5e-3);
@@ -576,7 +582,7 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
     from gaussian_splatting_with_eye_tracking_tpu_torch import backend, fps_foveated
     from gaussian_splatting_with_eye_tracking_tpu_torch import track_render
     from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet
-    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import amr, blend
 
     dev = cam.viewmatrix.device
     gx, gy = -(-W // 32), -(-H // 32)
@@ -636,19 +642,60 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
             f"{bad_tiles} of {gx * gy} tiles")
         return err
 
+    # the rounds as the 5-step frame launches them: one order per frame,
+    # each round's tiles a prefix of it, split over amr.ROUND_SPLIT CTAs
     round_args, round_work, round_err = [], {}, 0.0
+    order = blend.round_order(counts, st.tile_levels)
+    gated_tiles = [int((st.tile_levels >= rnd).sum()) for rnd in range(1, 5)]
+    split_ms, split_err = {}, {}
     with torch.no_grad():
         for rnd in range(1, 5):
             offx, offy = blend.ROUND_OFFX[rnd - 1], blend.ROUND_OFFY[rnd - 1]
             gated = torch.where(st.tile_levels >= rnd, counts, 0)
             a = (st.feat_soa, st.offsets, gx, gy)
-            kw = dict(offx=offx, offy=offy, counts_override=gated)
+            kw = dict(offx=offx, offy=offy, counts_override=gated, order=order,
+                      split=amr.ROUND_SPLIT[rnd - 1])
             got = blend.blend_round(*a, **kw)
-            plain = blend.blend_round_plain(*a, **kw, work=round_work)
+            plain = blend.blend_round_plain(*a, offx=offx, offy=offy, counts_override=gated,
+                                            work=round_work)
             torch.cuda.synchronize()
             valid = torch.ones(got.shape[:2], dtype=torch.bool, device=got.device)
             round_err = max(round_err, compare(f"blend_round {rnd}", got, plain, valid))
             round_args.append((a, kw))
+            # every split: final_T, chunks run and logT the bits of one CTA
+            # per tile, rgb within the gate of the plain version
+            one = blend.blend_round(*a, **{**kw, "split": 1})
+            for split in blend.ROUND_SPLITS:
+                kws = {**kw, "split": split}
+                out = blend.blend_round(*a, **kws)
+                torch.cuda.synchronize()
+                if not torch.equal(out[..., 3:6].view(torch.int32), one[..., 3:6].view(torch.int32)):
+                    raise AssertionError(f"blend_round {rnd} split {split}: final_T / chunks / "
+                                         f"logT differ from one CTA per tile")
+                err = compare(f"blend_round {rnd} split {split}", out, plain, valid)
+                split_err[f"{rnd}/{split}"] = err
+                split_ms[f"{rnd}/{split}"] = cuda_ms(lambda kws=kws: blend.blend_round(*a, **kws))
+            # one CTA per tile in tile order, as the parent launched it
+            kws = {**kw, "split": 1, "order": torch.arange(gx * gy, device=dev)}
+            if not torch.equal(blend.blend_round(*a, **kws).view(torch.int32),
+                               one.view(torch.int32)):
+                raise AssertionError(f"blend_round {rnd} in tile order differs")
+            split_ms[f"{rnd}/tile_order"] = cuda_ms(lambda: blend.blend_round(*a, **kws))
+        # the frame's four launches alone (order and counts made
+        # beforehand), as the 5-step frame splits them
+        rnd_out = torch.empty_like(one)
+        rounds_kernel_ms = []
+        for _, kw in round_args:
+            rounds_kernel_ms.append(cuda_ms(lambda kw=kw: blend.BLEND_ROUND(
+                st.feat_soa.data_ptr(), st.feat_soa.shape[1], st.offsets.data_ptr(),
+                kw["counts_override"].data_ptr(), order.data_ptr(), gx * gy, gx, kw["offx"],
+                kw["offy"], kw["split"], rnd_out.data_ptr(), backend.stream_ptr(counts)),
+                batch=20))
+        order_ms = cuda_ms(lambda: blend.round_order(counts, st.tile_levels))
+        log("blend_round per round and split (ms): " + json.dumps(split_ms)
+            + f"; the frame's order {order_ms:.4f} ms; gated tiles {gated_tiles}; the four "
+            f"launches alone " + ", ".join(f"{t:.4f}" for t in rounds_kernel_ms)
+            + f" ms, {sum(rounds_kernel_ms):.4f} ms in all")
         sub = 256
         row_round = torch.arange(4 * sub, device=st.offsets.device) // sub
         modes = {"(1,1,1,1)": (st, counts, (1, 1, 1, 1), False),
@@ -704,12 +751,14 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
             f"every tile at level 1 / 4: {json.dumps(level_uniform)}")
         round_ms = [cuda_ms(lambda a=a, kw=kw: blend.blend_round(*a, **kw))
                     for a, kw in round_args]
-        round_plain_ms = [cuda_ms(lambda a=a, kw=kw: blend.blend_round_plain(*a, **kw))
+        round_plain_ms = [cuda_ms(lambda a=a, kw=kw: blend.blend_round_plain(
+            *a, offx=kw["offx"], offy=kw["offy"], counts_override=kw["counts_override"]))
                           for a, kw in round_args]
         a, kw = level_args
         level_plain_ms = cuda_ms(lambda: blend.blend_levels_plain(*a, **kw))
     log("blend_round ms per round " + ", ".join(f"{t:.4f}" for t in round_ms)
-        + "; plain " + ", ".join(f"{t:.2f}" for t in round_plain_ms))
+        + f" (splits {list(amr.ROUND_SPLIT)}, gated tiles {gated_tiles}); four rounds "
+        f"{sum(round_ms):.4f} ms; plain " + ", ".join(f"{t:.2f}" for t in round_plain_ms))
     log("blend_levels ms " + ", ".join(f"{k} {v:.4f}" for k, v in level_ms.items())
         + f"; plain (1,1,1,1) {level_plain_ms:.2f}")
     log("blend_round bound over the four rounds:")
@@ -741,7 +790,10 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
         {"name": "blend_round", "route": "cuda", "source": src,
          "replaces": REPLACES["blend_round"], "launches": launches["five_step"]["blend_round"],
          "max_abs_err": round_err, "ms": sum(round_ms), "plain_ms": sum(round_plain_ms),
-         "bound_ms": round_bound[0], "bound_by": round_bound[1], "library_ms": None},
+         "bound_ms": round_bound[0], "bound_by": round_bound[1], "library_ms": None,
+         "rounds_ms": round_ms, "gated_tiles": gated_tiles, "splits": list(amr.ROUND_SPLIT),
+         "split_ms": split_ms, "split_max_abs_err": split_err, "order_ms": order_ms,
+         "kernel_ms": sum(rounds_kernel_ms), "rounds_kernel_ms": rounds_kernel_ms},
         {"name": "blend_levels", "route": "cuda", "source": src,
          "replaces": REPLACES["blend_levels"],
          "launches": sum(launches[k]["blend_levels"] for k in frames),
@@ -1004,6 +1056,17 @@ def main() -> int:
         k1_plain_ms = cuda_ms(lambda: expand.expand_rows_by_segments_plain(
             table, 0, MAX_INSTANCES))
         k1_lib_ms = cuda_ms(k1_library)
+        # the kernels alone: their launches back to back into an output
+        # allocated beforehand (the wrappers' host time is not in it)
+        k16 = torch.empty_like(k1)
+        k1_kernel_ms = cuda_ms(lambda: expand.EXPAND_SEG(
+            table.data_ptr(), table.shape[0], table.shape[1], 0, k16.data_ptr(), MAX_INSTANCES,
+            backend.stream_ptr(table)), batch=20)
+        k6_kernel_ms = cuda_ms(lambda: expand.EXPAND_ROWS(
+            table.data_ptr(), table.shape[0], table.shape[1], ck.data_ptr(), k16.data_ptr(),
+            MAX_INSTANCES, backend.stream_ptr(table)), batch=20)
+        if not torch.equal(k16.view(torch.int32), k1.view(torch.int32)):
+            raise AssertionError("expand_rows launched alone differs from expand_seg's output")
         k6_ms = cuda_ms(lambda: expand.expand_rows(table, ck))
         k6_plain_ms = cuda_ms(lambda: expand.expand_rows_plain(table, ck))
         k6_lib_ms = cuda_ms(lambda: table.index_select(1, ck))
@@ -1054,9 +1117,11 @@ def main() -> int:
     k2_gate_ms = 1e3 * max(k2_times["bytes"], (gate + 2 * kept + lanes // 1024) / SFU_OPS_PER_S,
                            (12 * gate + 11 * kept) / FP32_FLOPS_PER_S)
     log(f"expand_seg: {live_cols} live columns, {k1_bytes / 1e6:.1f} MB moved, "
-        f"bound {k1_bound:.4f} ms (bytes)")
+        f"bound {k1_bound:.4f} ms (bytes); {k1_ms:.4f} ms, the kernel alone {k1_kernel_ms:.4f} "
+        f"ms ({100 * k1_bound / k1_kernel_ms:.1f} % of the bound), plain {k1_plain_ms:.4f} ms, "
+        f"searchsorted + index_select {k1_lib_ms:.4f} ms")
     log(f"expand_rows: {k6_bytes / 1e6:.1f} MB moved, bound {k6_bound:.4f} ms (bytes); "
-        f"{k6_ms:.4f} ms, plain {k6_plain_ms:.4f} ms, index_select {k6_lib_ms:.4f} ms; "
+        f"{k6_ms:.4f} ms, the kernel alone {k6_kernel_ms:.4f} ms, plain {k6_plain_ms:.4f} ms, index_select {k6_lib_ms:.4f} ms; "
         f"launches on the main path {launches['expand_rows']} (no path of the package "
         f"calls it, as in the JAX package)")
     log(f"blend_fwd: {int(chunks.sum())} chunks; pairs in range {lanes}, power <= 0 "
@@ -1113,7 +1178,8 @@ def main() -> int:
         {"name": "expand_seg", "route": "cuda", "source": src.format("expand_seg"),
          "replaces": REPLACES["expand_seg"], "launches": launches["expand_seg"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": k1_lib_ms},
+         "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": k1_lib_ms,
+         "kernel_ms": k1_kernel_ms},
         {"name": "blend_fwd", "route": "cuda", "source": src.format("blend_fwd"),
          "replaces": REPLACES["blend_fwd"], "launches": launches["blend_fwd"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
@@ -1129,7 +1195,8 @@ def main() -> int:
         {"name": "expand_rows", "route": "cuda", "source": src.format("expand_seg"),
          "replaces": REPLACES["expand_rows"], "launches": launches["expand_rows"],
          "max_abs_err": k6_err, "ms": k6_ms, "plain_ms": k6_plain_ms,
-         "bound_ms": k6_bound, "bound_by": "bytes", "library_ms": k6_lib_ms},
+         "bound_ms": k6_bound, "bound_by": "bytes", "library_ms": k6_lib_ms,
+         "kernel_ms": k6_kernel_ms},
     ]
     log(json.dumps({"views_ms": view_ms, "peak_mib": peak_mb, "card": smi}))
     log(json.dumps({"train": {k: train[k] for k in ("losses", "l1", "psnr", "densify",

@@ -45,6 +45,8 @@ TILE = blend.TILE
 ROUND_OFFSET = {r: (blend.ROUND_OFFX[r - 1], blend.ROUND_OFFY[r - 1]) for r in range(1, 5)}
 # level L -> offset of the source pixel that fills the rounds it skips
 LEVEL_FILL_OFFSET = {1: (0, 0), 2: (0, 0), 3: (1, 1), 4: (1, 1)}
+# CTAs per tile of each round's ``blend.blend_round`` launch
+ROUND_SPLIT = (1, 1, 2, 4)
 
 
 class AMRState(NamedTuple):
@@ -63,6 +65,9 @@ class AMRState(NamedTuple):
     final_t: torch.Tensor  # (H', W')
     num_instances: torch.Tensor
     overflow: torch.Tensor
+    # the 5-step frame's tile launch order (``blend.round_order``), made by
+    # its first round and reused by the other three
+    round_order: Optional[torch.Tensor] = None
 
 
 def _grid(cam: CameraParams):
@@ -171,12 +176,19 @@ def _level_map(tile_levels: torch.Tensor, grid_x: int, grid_y: int) -> torch.Ten
 
 def fovea_step_render(state: AMRState, rnd: int, grid_x: int, grid_y: int) -> AMRState:
     """Step k (1..4): render round k for the tiles at level >= k and merge
-    it into the image (through strided views of a copy of it)."""
+    it into the image (through strided views of a copy of it). The tiles
+    launch in one order per frame (``blend.round_order``, sorted by the
+    first round to run), each round's tiles a prefix of it; round k splits
+    each tile over ``ROUND_SPLIT[k - 1]`` CTAs."""
     offx, offy = ROUND_OFFSET[rnd]
     gate = state.tile_levels >= rnd
     counts = state.offsets[1:] - state.offsets[:-1]
+    order = state.round_order
+    if order is None:
+        order = blend.round_order(counts, state.tile_levels)
     rows = blend.blend_round(state.feat_soa, state.offsets, grid_x, grid_y, offx=offx,
-                             offy=offy, counts_override=torch.where(gate, counts, 0))
+                             offy=offy, counts_override=torch.where(gate, counts, 0),
+                             order=order, split=ROUND_SPLIT[rnd - 1])
     color_r, final_t_r = _subgrid_image(rows, grid_x, grid_y)
     gate_px = _level_map(gate, grid_x, grid_y)
     color, final_t = state.color.clone(), state.final_t.clone()
@@ -186,7 +198,7 @@ def fovea_step_render(state: AMRState, rnd: int, grid_x: int, grid_y: int) -> AM
     levels_last = torch.where(gate, torch.clamp_min(state.tile_levels_last, rnd),
                               state.tile_levels_last)
     return state._replace(color=color, final_t=final_t,
-                          tile_levels_last=levels_last.to(torch.int32))
+                          tile_levels_last=levels_last.to(torch.int32), round_order=order)
 
 
 def interpolate(state: AMRState, grid_x: int, grid_y: int) -> AMRState:

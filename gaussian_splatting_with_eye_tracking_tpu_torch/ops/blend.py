@@ -87,9 +87,13 @@ BLEND_BWD = backend.CudaKernel(
 
 BLEND_ROUND = backend.CudaKernel(
     "blend_round", "blend_amr", "blend_round_launch",
-    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+     ctypes.c_void_p],
 )
+# CTAs that ``blend_round`` may split a tile over (a thread-block cluster;
+# 1 is one CTA per tile)
+ROUND_SPLITS = (1, 2, 4)
 
 BLEND_LEVELS = backend.CudaKernel(
     "blend_levels", "blend_amr", "blend_levels_launch",
@@ -163,6 +167,15 @@ def levels_order(counts: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
     """``blend_levels``' launch order: ``tile_order`` of level x instances
     per tile (a level-L tile composites L pixels per thread)."""
     return tile_order(levels * counts)
+
+
+def round_order(counts: torch.Tensor, levels: torch.Tensor) -> torch.Tensor:
+    """The 5-step frame's launch order of the tiles for all four
+    ``blend_round`` launches: by descending (level, instances), ties in
+    tile order. Round r renders the tiles at level >= r, so each round's
+    tiles are a prefix of this one order, heaviest first among equal
+    levels, and the tiles it skips form the tail."""
+    return tile_order(levels.to(torch.int64) << 32 | counts.to(torch.int64))
 
 
 def gate_box(x, y, a, b, c, opacity):
@@ -400,11 +413,16 @@ def _check_amr_inputs(feat_soa, offsets, counts, num_tiles, levels=None):
 
 
 def blend_round(feat_soa: torch.Tensor, offsets: torch.Tensor, grid_x: int, grid_y: int,
-                *, offx: int, offy: int,
-                counts_override: torch.Tensor | None = None) -> torch.Tensor:
+                *, offx: int, offy: int, counts_override: torch.Tensor | None = None,
+                order: torch.Tensor | None = None, split: int = 1) -> torch.Tensor:
     """One AMR round on TILE x TILE tiles: inputs as ``blend_fwd`` takes
     them, the cell offset, and optional per-tile counts (int, (T,)).
-    Returns (T, (TILE/2)^2, OUTC); see ``blend_round_plain``."""
+    Returns (T, (TILE/2)^2, OUTC); see ``blend_round_plain``. On CUDA the
+    tiles launch in ``order`` ((T,) int64, a permutation of the tiles;
+    by default ``tile_order`` of the counts, one sort) and each tile with a
+    nonzero count is composited by ``split`` CTAs (one of ``ROUND_SPLITS``;
+    a thread-block cluster above 1). Neither changes final_T, the chunks
+    run or logT; rgb moves by rounding only."""
     if counts_override is None:
         counts = (offsets[1:] - offsets[:-1]).to(torch.int32)
     else:
@@ -416,12 +434,19 @@ def blend_round(feat_soa: torch.Tensor, offsets: torch.Tensor, grid_x: int, grid
     _check_amr_inputs(feat_soa, offsets, counts, num_tiles)
     if offx not in (0, 1) or offy not in (0, 1):
         raise ValueError(f"cell offset ({offx}, {offy}) is not in {{0, 1}}^2")
+    if split not in ROUND_SPLITS:
+        raise ValueError(f"split {split} is not one of {ROUND_SPLITS}")
+    if order is None:
+        order = tile_order(counts)
+    backend.check_cuda_tensor("order", order, torch.int64)
+    if order.shape != (num_tiles,):
+        raise ValueError(f"order shape {tuple(order.shape)} != ({num_tiles},)")
     out = torch.empty((num_tiles, (TILE // 2) ** 2, OUTC), dtype=torch.float32,
                       device=feat_soa.device)
     if num_tiles > 0:
         BLEND_ROUND(feat_soa.data_ptr(), feat_soa.shape[1], offsets.data_ptr(),
-                    counts.data_ptr(), num_tiles, grid_x, offx, offy, out.data_ptr(),
-                    backend.stream_ptr(feat_soa))
+                    counts.data_ptr(), order.data_ptr(), num_tiles, grid_x, offx, offy, split,
+                    out.data_ptr(), backend.stream_ptr(feat_soa))
     return out
 
 

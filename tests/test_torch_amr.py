@@ -375,3 +375,31 @@ def test_interpolation_copy_semantics(scene):
             np.testing.assert_array_equal(b[:, 1::2, 0::2], b[:, 1::2, 1::2])
         checked += 1
     assert checked > 0
+
+
+@pytest.mark.parametrize("gaze", [False, True])
+def test_five_step_frame_sorts_its_launch_order_once(scene, gaze, monkeypatch):
+    """The 5-step frame's four rounds launch in one order, made by the
+    first round (``blend.round_order`` of the frame's counts and levels)
+    and carried in the state; each round passes its split."""
+    _, _, tg, tc = scene
+    kw = dict(gaze_xy=to_torch(GAZE), gaze_radii=to_torch(RADII)) if gaze else {}
+    calls, sorts = [], []
+    blend_round, round_order = tblend.blend_round, tblend.round_order
+
+    def spy_round(*a, **k):
+        calls.append((k["order"], k["split"]))
+        return blend_round(*a, **k)
+
+    def spy_order(*a):
+        sorts.append(a)
+        return round_order(*a)
+
+    monkeypatch.setattr(tblend, "blend_round", spy_round)
+    monkeypatch.setattr(tblend, "round_order", spy_order)
+    _, st = tamr.render_amr(*tg, 0, tc, to_torch(BG), max_instances=CAP, **kw)
+    assert len(sorts) == 1 and len(calls) == 4
+    counts = st.offsets[1:] - st.offsets[:-1]
+    assert_equal(st.round_order, round_order(counts, st.tile_levels).numpy())
+    assert all(order is st.round_order for order, _ in calls)
+    assert [split for _, split in calls] == list(tamr.ROUND_SPLIT)

@@ -239,3 +239,28 @@ def test_levels_order_heaviest_first():
     order = tblend.levels_order(counts, levels)
     assert order.dtype == torch.int64
     assert order.tolist() == [4, 1, 0, 3, 5, 2]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_round_order_prefix_per_round(seed):
+    """The 5-step frame's one launch order: for each round r, the tiles it
+    renders (level >= r) come first, heaviest first among equal levels
+    (descending (level, instances), ties in tile order), and the tiles it
+    skips form the tail."""
+    gen = torch.Generator().manual_seed(seed)
+    counts = torch.randint(0, 6, (200,), generator=gen, dtype=torch.int32) * 100
+    levels = torch.randint(1, 5, (200,), generator=gen, dtype=torch.int32)
+    order = tblend.round_order(counts, levels)
+    assert order.dtype == torch.int64
+    want = sorted(range(200), key=lambda t: (-int(levels[t]), -int(counts[t]), t))
+    assert order.tolist() == want
+    for rnd in range(1, 5):
+        gated = int((levels >= rnd).sum())
+        assert bool((levels[order[:gated]] >= rnd).all())
+        assert not bool((levels[order[gated:]] >= rnd).any())
+
+
+def test_round_order_small_example():
+    counts = torch.tensor([100, 40, 0, 50, 400, 25, 40], dtype=torch.int32)
+    levels = torch.tensor([1, 4, 4, 2, 1, 4, 4], dtype=torch.int32)
+    assert tblend.round_order(counts, levels).tolist() == [1, 6, 5, 2, 3, 4, 0]

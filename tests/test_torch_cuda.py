@@ -92,14 +92,15 @@ def test_expand_rows_kernel_bit_exact(dev, dead_frac):
         expand.expand_rows(t, ck.to(torch.int64))
 
 
-def _scene_features(dev, n=3000, w=256, h=192):
+def _scene_features(dev, n=3000, w=256, h=192, max_instances=1 << 16):
     g = [x.to(dev) for x in random_scene(n, seed=3, sh_degree=1)]
     prep = preprocess(*g, 1, front_camera(w, h, dev))
     gx, gy = w // 32, h // 32
     si = binning.build_sorted_instances(
         prep.means2d, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched,
         prep.rect_min, prep.rect_max, prep.cull_thr, prep.depths, gx, gy,
-        max_instances=1 << 16, tile_px=32)
+        max_instances=max_instances, tile_px=32)
+    assert not bool(si.binning.overflow)
     return blend.feat_soa_from_rows(si.feat_rows, 128), si.binning.offsets, gx, gy
 
 
@@ -565,3 +566,133 @@ def test_levels_kernel_launch_orders_bit_identical(dev):
                            counts.data_ptr(), levels.data_ptr(), order.data_ptr(), gx * gy,
                            gx, 4, 2, 1, 1, 0, out.data_ptr(), backend.stream_ptr(feat))
         assert torch.equal(_bits(out), _bits(want))
+
+
+def _k1_table(case):
+    """(table, k) for K1's edge cases: segment starts in row 0 (exact-int
+    float32, nondecreasing, +inf on the dead tail), other rows random."""
+    rng = np.random.default_rng(11)
+    nc = 6000
+    table = rng.normal(size=(16, nc)).astype(np.float32)
+    counts = rng.integers(1, 12, nc)
+    n_live = nc
+    if case == "all_dead":
+        n_live = 0
+    elif case == "one_column_100k":  # one column owns more slots than many runs
+        counts[nc // 3] = 100_000
+    elif case == "one_slot_columns":  # windows wider than the staged columns
+        counts[:] = 1
+    elif case == "inf_between_live":
+        # columns that own no slot between live ones (a start equal to the
+        # next one's), +inf and NaN values in the data rows, a dead tail
+        counts[rng.uniform(size=nc) < 0.3] = 0
+        n_live = nc - 500
+        table[5, ::7] = np.inf
+        table[6, ::11] = -np.inf
+        table[7, ::13] = np.nan
+    table[0, :n_live] = np.cumsum(counts[:n_live]) - counts[:n_live]
+    table[0, n_live:] = np.inf
+    total = int(counts[:n_live].sum())
+    k = {"k_not_a_run_multiple": total + 777, "k_not_a_multiple_of_4": total + 1023}.get(
+        case, total + 4096)
+    if case == "k_not_a_multiple_of_4":
+        k += (k % 4 == 0)
+    return table, k
+
+
+@pytest.mark.parametrize("case", ["all_dead", "one_column_100k", "k_not_a_run_multiple",
+                                  "k_not_a_multiple_of_4", "inf_between_live",
+                                  "one_slot_columns"])
+def test_expand_kernel_edge_cases_bit_exact(dev, case):
+    table, k = _k1_table(case)
+    t = to_torch(table).to(dev)
+    got = expand.expand_rows_by_segments(t, 0, k)
+    want = expand.expand_rows_by_segments_plain(t, 0, k)
+    torch.cuda.synchronize()
+    assert got.shape == (16, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _front_view_prep(dev):
+    """The 300k bench scene's front view (1920x1088), preprocessed."""
+    g = [torch.from_numpy(a).to(dev) for a in cs.make_scene(cs.N)]
+    return g, preprocess(*g, 3, cs.view_request(0.0, 0.0).params(device=dev), tile=32)
+
+
+def test_expand_kernel_front_view_bit_exact(dev):
+    _, prep = _front_view_prep(dev)
+    table, _ = binning.compact_table(prep.means2d, prep.conics, prep.rgb, prep.opacities,
+                                     prep.tiles_touched, prep.rect_min, prep.rect_max,
+                                     prep.cull_thr, prep.depths)
+    got = expand.expand_rows_by_segments(table, 0, cs.MAX_INSTANCES)
+    want = expand.expand_rows_by_segments_plain(table, 0, cs.MAX_INSTANCES)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _gated_counts(counts, n_gated, seed=0):
+    """counts with all but n_gated tiles (drawn from a seed) set to 0."""
+    gen = torch.Generator().manual_seed(seed)
+    keep = torch.randperm(counts.shape[0], generator=gen)[:n_gated].to(counts.device)
+    out = torch.zeros_like(counts)
+    out[keep] = counts[keep]
+    return out
+
+
+@pytest.mark.parametrize("n_gated", [0, 1, 56])
+@pytest.mark.parametrize("split", blend.ROUND_SPLITS)
+def test_round_kernel_gated_tiles_match_plain(dev, n_gated, split):
+    feat, offsets, gx, gy = _scene_features(dev, n=6000, w=512, h=384, max_instances=1 << 19)
+    counts = (offsets[1:] - offsets[:-1]).to(torch.int32)
+    gated = _gated_counts(counts, n_gated)
+    kw = dict(offx=1, offy=0, counts_override=gated)
+    want = blend.blend_round_plain(feat, offsets, gx, gy, **kw)
+    levels = torch.where(gated > 0, 4, 1).to(torch.int32)
+    for order in (blend.round_order(counts, levels), torch.arange(gx * gy, device=dev)):
+        got = blend.blend_round(feat, offsets, gx, gy, **kw, order=order, split=split)
+        _assert_rows_match(got, want)
+    assert int((want[:, 0, 4] > 0).sum()) == int((gated > 0).sum())
+
+
+def test_round_kernel_front_view_four_rounds(dev):
+    """The 300k bench scene's front view with gaze rings as the eye-tracked
+    frame sets them, each round in the frame's launch order at every split:
+    chunks run equal to the plain version's on every tile, rgb/final_T
+    within chip_smoke's 1e-3 of it (a pair at the 1/255 alpha gate, kept
+    on one side only, moved one round-1 tile by 1.4e-4 at every split); the
+    splits' final_T, chunks run and logT the bits of one CTA per tile, rgb
+    within 1e-5 of it (exp(logT) * exp(local) for exp(logT + local))."""
+    g, _ = _front_view_prep(dev)
+    st = amr.fovea_step0(*g, 3, cs.view_request(0.0, 0.0).params(device=dev),
+                         max_instances=cs.MAX_INSTANCES,
+                         gaze_xy=torch.tensor([0.55 * cs.W, 0.45 * cs.H], device=dev),
+                         gaze_radii=torch.tensor([cs.H / 8, cs.H / 4, cs.H / 2], device=dev))
+    assert not bool(st.overflow)
+    gx, gy = cs.W // 32, cs.H // 32
+    counts = (st.offsets[1:] - st.offsets[:-1]).to(torch.int32)
+    order = blend.round_order(counts, st.tile_levels)
+    for rnd in range(1, 5):
+        kw = dict(offx=blend.ROUND_OFFX[rnd - 1], offy=blend.ROUND_OFFY[rnd - 1],
+                  counts_override=torch.where(st.tile_levels >= rnd, counts, 0))
+        want = blend.blend_round_plain(st.feat_soa, st.offsets, gx, gy, **kw)
+        one = blend.blend_round(st.feat_soa, st.offsets, gx, gy, **kw, order=order, split=1)
+        torch.cuda.synchronize()
+        assert torch.equal(one[..., 4], want[..., 4])
+        assert torch.allclose(one[..., 0:4], want[..., 0:4], atol=1e-3, rtol=0)
+        for split in blend.ROUND_SPLITS[1:]:
+            got = blend.blend_round(st.feat_soa, st.offsets, gx, gy, **kw, order=order,
+                                    split=split)
+            torch.cuda.synchronize()
+            assert torch.equal(got[..., 3:6].view(torch.int32), one[..., 3:6].view(torch.int32))
+            assert torch.allclose(got[..., 0:3], one[..., 0:3], atol=1e-5, rtol=0)
+
+
+def test_round_kernel_refuses_bad_split_and_order(dev):
+    feat, offsets, gx, gy = _scene_features(dev, n=500, w=64, h=64)
+    before = blend.BLEND_ROUND.launches
+    with pytest.raises(ValueError):
+        blend.blend_round(feat, offsets, gx, gy, offx=0, offy=0, split=3)
+    with pytest.raises(ValueError):
+        blend.blend_round(feat, offsets, gx, gy, offx=0, offy=0,
+                          order=torch.arange(gx * gy, dtype=torch.int32, device=dev))
+    assert blend.BLEND_ROUND.launches == before
