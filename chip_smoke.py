@@ -93,7 +93,27 @@ Phases (any failure raises and the script exits non-zero):
     ``expand_seg`` / ``blend_fwd`` more; 3 test renders of 256x256;
     results.json's PSNR within 0.2 dB of the trainer's at 1000 (PNG
     quantisation); the checkpoint loads back bit for bit;
-15. print a ``{"kernels": [...]}`` line, then as the last line
+15. the serving-side entry points, in this process through each module's
+    ``main``, the launch counters zeroed before and read after each:
+    ``bench`` (its last line the root bench.py's four keys, value > 0;
+    K1-K4 launched on every timed step); ``fps_test`` on the synthetic
+    100k scene at ratios 0.2, 1.0 and 2.0 (up to 3840x2144, 8,040 tiles),
+    vanilla and AMR, and on the CLI model through ``-m`` alone (its
+    ``cfg_args`` overlaid) at 1.0: no overflow at the capacity used, times
+    finite, the JSON written; at 3840x2144 K1 bit for bit against its
+    plain version at the capacities the sweeps settled on, and K2 and the
+    four rounds against theirs at phase 5's and phase 9's gates;
+    ``fps_foveated``
+    on the CLI model with ``--gaze`` and on the synthetic scene at
+    1920x1080 (a 24 px last tile row) with ``--gaze --decimate 4 2 1 1``:
+    the root script's document keys, the fused frame within 1e-3 of the
+    5-step frame, the rounds and the levels kernel against their plain
+    versions on the rendered rows, ``--alpha bf16`` refused;
+    ``track_render`` on the CLI model with the synthetic eye as a PNG, 4
+    views: the renders at the camera size, ``eye_seg_pred.png`` written,
+    the gaze within 1 px of phase 7's, each render within 1/255 + 1e-3 of
+    ``foveated_view``'s 5-step frame, ``blend_round`` 4 times per view;
+16. print a ``{"kernels": [...]}`` line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
@@ -106,7 +126,6 @@ import math
 import os
 import re
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -574,6 +593,65 @@ def amr_bound(work, out_numel, index_numel):
     return times[by] * 1e3, by
 
 
+def compare_tiles(name, got, want, rows_valid):
+    """A compositor's (T, rows, 8) output against its plain version's:
+    rgb/final_T within 1e-3 on the rows rendered, chunks run equal on all
+    but 0.1 % of tiles, zero rows where ``rows_valid`` is False. Returns
+    the max |err|."""
+    n_tiles = got.shape[0]
+    row_err = (got[..., 0:4] - want[..., 0:4]).abs().amax(-1)[rows_valid]
+    err = float(row_err.max())
+    bad_tiles = int((got[:, 0, 4] != want[:, 0, 4]).sum())
+    if not err <= 1e-3 or bad_tiles > 0.001 * n_tiles:
+        raise AssertionError(f"{name}: max |err| {err}, chunks run differ on {bad_tiles} tiles")
+    if got[~rows_valid].any():
+        raise AssertionError(f"{name}: rows above the tile's level are not zero")
+    log(f"{name} vs plain: max |err| rgb/final_T {err:.3g} (pixels over 1e-5 / 1e-4: "
+        f"{int((row_err > 1e-5).sum())} / {int((row_err > 1e-4).sum())} of {row_err.numel()}), "
+        f"chunks run differ on {bad_tiles} of {n_tiles} tiles")
+    return err
+
+
+def hold_rounds(st, gx, gy, tag, work=None):
+    """The four AMR rounds of a 5-step frame's step-0 state ``st`` as the
+    frame launches them (one order, ``amr.ROUND_SPLIT``) against their
+    plain versions (``work`` gathers what those count). Returns each
+    round's max |err|, the order, and each round's (args, kwargs as
+    launched, plain output)."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import amr, blend
+
+    counts = (st.offsets[1:] - st.offsets[:-1]).to(torch.int32)
+    order = blend.round_order(counts, st.tile_levels)
+    errs, launched = [], []
+    for rnd in range(1, 5):
+        a = (st.feat_soa, st.offsets, gx, gy)
+        kw = dict(offx=blend.ROUND_OFFX[rnd - 1], offy=blend.ROUND_OFFY[rnd - 1],
+                  counts_override=torch.where(st.tile_levels >= rnd, counts, 0))
+        want = blend.blend_round_plain(*a, **kw, work=work)
+        kw.update(order=order, split=amr.ROUND_SPLIT[rnd - 1])
+        got = blend.blend_round(*a, **kw)
+        valid = torch.ones(got.shape[:2], dtype=torch.bool, device=got.device)
+        errs.append(compare_tiles(f"{tag}blend_round {rnd}", got, want, valid))
+        launched.append((a, kw, want))
+    return errs, order, launched
+
+
+def hold_levels(st, gx, gy, tag, decimation, scale_only=False, work=None):
+    """The levels kernel on the step-0 state ``st`` against its plain
+    version (``work`` gathers what that counts). Returns the max |err|,
+    the (args, kwargs) and the kernel's output."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend
+
+    counts = (st.offsets[1:] - st.offsets[:-1]).to(torch.int32)
+    a = (st.feat_soa, st.offsets, counts, st.tile_levels, gx, gy)
+    kw = dict(decimation=decimation, scale_only=scale_only)
+    got = blend.blend_levels(*a, **kw)
+    want = blend.blend_levels_plain(*a, **kw, work=work)
+    valid = (torch.arange(1024, device=counts.device) // 256)[None, :] < st.tile_levels[:, None]
+    name = f"{tag}blend_levels {decimation}{' scale_only' if scale_only else ''}"
+    return compare_tiles(name, got, want, valid), (a, kw), got
+
+
 def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
     """Phases 8-10: the eye-tracked foveated frames on the served model,
     the foveated kernels against their plain versions on the front view's
@@ -629,39 +707,17 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
     # the kernels against their plain versions on the front view's inputs
     st, pre = states["five_step"], states["predecimated"]
     counts = (st.offsets[1:] - st.offsets[:-1]).to(torch.int32)
-    pre_counts = (pre.offsets[1:] - pre.offsets[:-1]).to(torch.int32)
-
-    def compare(name, got, want_, rows_valid):
-        err = float((got[..., 0:4] - want_[..., 0:4])[rows_valid].abs().max())
-        bad_tiles = int((got[:, 0, 4] != want_[:, 0, 4]).sum())
-        if not err <= 1e-3 or bad_tiles > 0.001 * gx * gy:
-            raise AssertionError(f"{name}: max |err| {err}, chunks run differ on {bad_tiles} tiles")
-        if got[~rows_valid].any():
-            raise AssertionError(f"{name}: rows above the tile's level are not zero")
-        log(f"{name} vs plain: max |err| rgb/final_T {err:.3g}, chunks run differ on "
-            f"{bad_tiles} of {gx * gy} tiles")
-        return err
 
     # the rounds as the 5-step frame launches them: one order per frame,
     # each round's tiles a prefix of it, split over amr.ROUND_SPLIT CTAs
-    round_args, round_work, round_err = [], {}, 0.0
-    order = blend.round_order(counts, st.tile_levels)
+    round_work = {}
     gated_tiles = [int((st.tile_levels >= rnd).sum()) for rnd in range(1, 5)]
     split_ms, split_err = {}, {}
     with torch.no_grad():
-        for rnd in range(1, 5):
-            offx, offy = blend.ROUND_OFFX[rnd - 1], blend.ROUND_OFFY[rnd - 1]
-            gated = torch.where(st.tile_levels >= rnd, counts, 0)
-            a = (st.feat_soa, st.offsets, gx, gy)
-            kw = dict(offx=offx, offy=offy, counts_override=gated, order=order,
-                      split=amr.ROUND_SPLIT[rnd - 1])
-            got = blend.blend_round(*a, **kw)
-            plain = blend.blend_round_plain(*a, offx=offx, offy=offy, counts_override=gated,
-                                            work=round_work)
-            torch.cuda.synchronize()
-            valid = torch.ones(got.shape[:2], dtype=torch.bool, device=got.device)
-            round_err = max(round_err, compare(f"blend_round {rnd}", got, plain, valid))
-            round_args.append((a, kw))
+        round_errs, order, launched = hold_rounds(st, gx, gy, "", work=round_work)
+        round_err = max(round_errs)
+        for rnd, (a, kw, plain) in enumerate(launched, 1):
+            valid = torch.ones(plain.shape[:2], dtype=torch.bool, device=dev)
             # every split: final_T, chunks run and logT the bits of one CTA
             # per tile, rgb within the gate of the plain version
             one = blend.blend_round(*a, **{**kw, "split": 1})
@@ -672,7 +728,7 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
                 if not torch.equal(out[..., 3:6].view(torch.int32), one[..., 3:6].view(torch.int32)):
                     raise AssertionError(f"blend_round {rnd} split {split}: final_T / chunks / "
                                          f"logT differ from one CTA per tile")
-                err = compare(f"blend_round {rnd} split {split}", out, plain, valid)
+                err = compare_tiles(f"blend_round {rnd} split {split}", out, plain, valid)
                 split_err[f"{rnd}/{split}"] = err
                 split_ms[f"{rnd}/{split}"] = cuda_ms(lambda kws=kws: blend.blend_round(*a, **kws))
             # one CTA per tile in tile order, as the parent launched it
@@ -685,7 +741,7 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
         # beforehand), as the 5-step frame splits them
         rnd_out = torch.empty_like(one)
         rounds_kernel_ms = []
-        for _, kw in round_args:
+        for _, kw, _ in launched:
             rounds_kernel_ms.append(cuda_ms(lambda kw=kw: blend.BLEND_ROUND(
                 st.feat_soa.data_ptr(), st.feat_soa.shape[1], st.offsets.data_ptr(),
                 kw["counts_override"].data_ptr(), order.data_ptr(), gx * gy, gx, kw["offx"],
@@ -697,20 +753,14 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
             f"launches alone " + ", ".join(f"{t:.4f}" for t in rounds_kernel_ms)
             + f" ms, {sum(rounds_kernel_ms):.4f} ms in all")
         sub = 256
-        row_round = torch.arange(4 * sub, device=st.offsets.device) // sub
-        modes = {"(1,1,1,1)": (st, counts, (1, 1, 1, 1), False),
-                 f"{DECIMATION}": (st, counts, DECIMATION, False),
-                 f"{DECIMATION} scale_only": (pre, pre_counts, DECIMATION, True)}
+        modes = {"(1,1,1,1)": (st, (1, 1, 1, 1), False),
+                 f"{DECIMATION}": (st, DECIMATION, False),
+                 f"{DECIMATION} scale_only": (pre, DECIMATION, True)}
         level_work, level_err, level_ms = {}, 0.0, {}
-        for mode, (s, c, dec, so) in modes.items():
-            a = (s.feat_soa, s.offsets, c, s.tile_levels, gx, gy)
-            kw = dict(decimation=dec, scale_only=so)
-            got = blend.blend_levels(*a, **kw)
+        for mode, (s, dec, so) in modes.items():
             work = {}
-            plain = blend.blend_levels_plain(*a, **kw, work=work)
-            torch.cuda.synchronize()
-            valid = row_round[None, :] < s.tile_levels[:, None]
-            level_err = max(level_err, compare(f"blend_levels {mode}", got, plain, valid))
+            err, (a, kw), got = hold_levels(s, gx, gy, "", dec, so, work=work)
+            level_err = max(level_err, err)
             level_ms[mode] = cuda_ms(lambda: blend.blend_levels(*a, **kw))
             if not level_work:
                 level_work, level_args, level_out = work, (a, kw), got
@@ -750,10 +800,10 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
             f"tile order {level_kernel['tile_order_ms']:.4f} ms (bit-identical, twice each); "
             f"every tile at level 1 / 4: {json.dumps(level_uniform)}")
         round_ms = [cuda_ms(lambda a=a, kw=kw: blend.blend_round(*a, **kw))
-                    for a, kw in round_args]
+                    for a, kw, _ in launched]
         round_plain_ms = [cuda_ms(lambda a=a, kw=kw: blend.blend_round_plain(
             *a, offx=kw["offx"], offy=kw["offy"], counts_override=kw["counts_override"]))
-                          for a, kw in round_args]
+                          for a, kw, _ in launched]
         a, kw = level_args
         level_plain_ms = cuda_ms(lambda: blend.blend_levels_plain(*a, **kw))
     log("blend_round ms per round " + ", ".join(f"{t:.4f}" for t in round_ms)
@@ -772,6 +822,8 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
         state, cam, bg, gaze_xy=gaze_xy, radii=torch.tensor(radii, device=dev),
         decimation=DECIMATION, max_instances=MAX_INSTANCES, max_live=MAX_LIVE, reps=REPS,
         device=dev)
+    if fps["capacity"] != MAX_INSTANCES:
+        raise AssertionError(f"the foveated breakdown grew its capacity to {fps['capacity']}")
     model_input = ritnet.preprocess_eye_image(eye, device=dev)
     with torch.no_grad():
         fps["ritnet_ms"] = cuda_ms(lambda: model(model_input))
@@ -782,7 +834,7 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
     log("foveated timings (ms, median of 10): " + json.dumps(
         {k: v for k, v in fps.items() if k.endswith("ms") or k.endswith("_vs_plain")}))
     log(f"fused / plain served view = {fps['fused_ms'] / serve_ms:.3f}; fused / plain "
-        f"frame in the breakdown = {fps['fused_vs_plain']:.3f}; peak "
+        f"frame in the breakdown = {fps['fused_undecimated_vs_plain']:.3f}; peak "
         f"{fps.get('fused_peak_mib')} MiB, {fps.get('fused_held_mib')} MiB of it held before "
         f"the frame")
     src = "gaussian_splatting_with_eye_tracking_tpu_torch/csrc/blend_amr.cu"
@@ -808,9 +860,10 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
     return kernels, summary
 
 
-def cli_phase():
+def cli_phase(tmp):
     """Phase 14: synthesize -> train -> render -> metrics through the
-    modules' ``main``s in a temporary directory. Returns the numbers."""
+    modules' ``main``s in the directory ``tmp`` (its ``scene`` and
+    ``model``). Returns the numbers."""
     from gaussian_splatting_with_eye_tracking_tpu_torch import backend, metrics, render
     from gaussian_splatting_with_eye_tracking_tpu_torch import scene_synth
     from gaussian_splatting_with_eye_tracking_tpu_torch import train as train_cli
@@ -820,33 +873,32 @@ def cli_phase():
 
     n = CLI_ITERATIONS
     stages = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        scene_dir, model = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
-        t0 = time.perf_counter()
-        scene_synth.synthesize_dataset(scene_dir)
-        stages["synthesize_s"] = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        for kern in backend.kernels():
-            kern.launches = 0
-        t0 = time.perf_counter()
-        _, state, tlog = run_cli(train_cli.main, [
-            "-s", scene_dir, "-m", model, "--iterations", str(n), "--eval",
-            "--test_iterations", str(n // 2), str(n), "--save_iterations", str(n),
-            "--checkpoint_iterations", str(n), "--disable_viewer", "--quiet"])
-        torch.cuda.synchronize()
-        stages["train_s"] = time.perf_counter() - t0
-        launches = {kern.name: kern.launches for kern in backend.kernels()}
-        t0 = time.perf_counter()
-        run_cli(render.main, ["-m", model, "--iteration", str(n), "--quiet"])
-        stages["render_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        results = run_cli(metrics.main, ["-m", model, "--no_lpips"])[model][f"ours_{n}"]
-        stages["metrics_s"] = time.perf_counter() - t0
+    scene_dir, model = os.path.join(tmp, "scene"), os.path.join(tmp, "model")
+    t0 = time.perf_counter()
+    scene_synth.synthesize_dataset(scene_dir)
+    stages["synthesize_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for kern in backend.kernels():
+        kern.launches = 0
+    t0 = time.perf_counter()
+    _, state, tlog = run_cli(train_cli.main, [
+        "-s", scene_dir, "-m", model, "--iterations", str(n), "--eval",
+        "--test_iterations", str(n // 2), str(n), "--save_iterations", str(n),
+        "--checkpoint_iterations", str(n), "--disable_viewer", "--quiet"])
+    torch.cuda.synchronize()
+    stages["train_s"] = time.perf_counter() - t0
+    launches = {kern.name: kern.launches for kern in backend.kernels()}
+    t0 = time.perf_counter()
+    run_cli(render.main, ["-m", model, "--iteration", str(n), "--quiet"])
+    stages["render_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results = run_cli(metrics.main, ["-m", model, "--no_lpips"])[model][f"ours_{n}"]
+    stages["metrics_s"] = time.perf_counter() - t0
 
-        renders = os.path.join(model, "test", f"ours_{n}", "renders")
-        shapes = [load_image_chw(os.path.join(renders, f)).shape
-                  for f in sorted(os.listdir(renders))]
-        saved, it = ckpt.load_checkpoint(os.path.join(model, f"chkpnt{n}.ckpt"))
+    renders = os.path.join(model, "test", f"ours_{n}", "renders")
+    shapes = [load_image_chw(os.path.join(renders, f)).shape
+              for f in sorted(os.listdir(renders))]
+    saved, it = ckpt.load_checkpoint(os.path.join(model, f"chkpnt{n}.ckpt"))
     a, b = ckpt.state_to_dict(saved), ckpt.state_to_dict(state)
     pairs = [(a["params"], b["params"]), (a["opt_state"]["mu"], b["opt_state"]["mu"]),
              (a["opt_state"]["nu"], b["opt_state"]["nu"]),
@@ -889,11 +941,253 @@ def cli_phase():
     return out
 
 
+SWEEP_RATIOS = (0.2, 1.0, 2.0)  # of 1920x1080: 384x192, 1920x1056, 3840x2144 (8,040 tiles)
+BENCH_LINE_KEYS = ["metric", "value", "unit", "vs_baseline"]
+FOVEATED_KEYS = ("steps_protocol", "steps_protocol_total_ms", "fused_ms", "fused_fps",
+                 "plain_forward_ms", "plain_forward_fps", "fused_vs_plain",
+                 "fused_undecimated_vs_plain")
+
+
+def counted(fn, *args, **kw):
+    """``fn(*args, **kw)`` with every launch counter zeroed just before and
+    read just after: (its result, {kernel: launches})."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import backend
+
+    torch.cuda.synchronize()
+    for kern in backend.kernels():
+        kern.launches = 0
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    return out, {kern.name: kern.launches for kern in backend.kernels()}
+
+
+def need_launches(path, launches, at_least, none_of=()):
+    bad = {k: launches[k] for k, n in at_least.items() if launches[k] < n}
+    bad.update({k: launches[k] for k in none_of if launches[k]})
+    if bad:
+        raise AssertionError(f"{path}: launches {launches}, wanted at least {at_least} and "
+                             f"none of {list(none_of)}")
+
+
+def entry_phase(tmp, gaze_uv):
+    """Phase 15: the serving-side entry points through their ``main``s, in
+    this process, on the CLI phase's model (``tmp``/model) and fps_test's
+    synthetic scene. Returns the numbers."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from gaussian_splatting_with_eye_tracking_tpu_torch import bench, fps_foveated, fps_test
+    from gaussian_splatting_with_eye_tracking_tpu_torch import renderer, track_render
+    from gaussian_splatting_with_eye_tracking_tpu_torch.config import model_config_of
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import amr, binning, blend, expand
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops.projection import preprocess
+    from gaussian_splatting_with_eye_tracking_tpu_torch.scene import Scene
+    from gaussian_splatting_with_eye_tracking_tpu_torch.train_regression import run_cli
+    from gaussian_splatting_with_eye_tracking_tpu_torch.utils.image_utils import load_image_chw
+
+    dev = torch.device("cuda")
+    model = os.path.join(tmp, "model")
+    out = {}
+    t_phase = time.perf_counter()
+
+    # bench: the card line, then the root script's four-key line
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res, launches = counted(bench.main, [])
+    card_line, line = buf.getvalue().strip().splitlines()[-2:]
+    doc = json.loads(line)
+    if list(doc) != BENCH_LINE_KEYS or not doc["value"] > 0 or doc != res["line"]:
+        raise AssertionError(f"bench printed {line!r}")
+    per_step = {"expand_seg": res["iterations"], "blend_fwd": res["iterations"],
+                "blend_bwd": res["iterations"], "segsum": res["iterations"]}
+    need_launches("bench, timed steps", res["launches"], per_step)
+    need_launches("bench", launches, per_step)
+    out["bench"] = {"line": doc, "card": card_line, "ms": res["ms"],
+                    "instances": res["instances"], "enumerated": res["enumerated"],
+                    "timed_launches": res["launches"], "launches": launches}
+    log(f"bench ({card_line}): {line}; {res['ms']:.3f} ms per forward + backward, "
+        f"{res['instances']} instances of {res['enumerated']} enumerated; launches over "
+        f"{res['iterations']} timed steps {res['launches']}")
+
+    # the sweeps: synthetic 100k at three ratios, vanilla and AMR; the CLI
+    # model through -m alone at 1920x1056
+    sweeps = {}
+    runs = {"vanilla": (["--synthetic"], False, SWEEP_RATIOS),
+            "amr": (["--synthetic"], True, SWEEP_RATIOS),
+            "model": (["-m", model], False, (1.0,))}
+    for tag, (argv, amr_mode, ratios) in runs.items():
+        path = os.path.join(tmp, f"fps_{tag}.json")
+        results, launches = counted(fps_test.main, argv + ["--out", path], amr_mode=amr_mode,
+                                    ratios=list(ratios))
+        with open(path) as f:
+            saved = json.load(f)
+        if saved["results"] != results or saved["amr"] is not amr_mode:
+            raise AssertionError(f"sweep {tag}: the JSON differs from the results")
+        for r in results:
+            if not (r["enumerated"] <= r["capacity"] and 0 < r["instances"]
+                    and math.isfinite(r["ms"]) and r["ms"] > 0):
+                raise AssertionError(f"sweep {tag}: {r}")
+        renders = len(ratios) * (fps_test.REPS + 2)  # probe, warm-up, timed
+        if amr_mode:
+            need_launches(f"sweep {tag}", launches,
+                          {"expand_seg": renders, "blend_round": 4 * renders},
+                          ("blend_fwd", "blend_levels"))
+        else:
+            need_launches(f"sweep {tag}", launches,
+                          {"expand_seg": renders, "blend_fwd": renders},
+                          ("blend_round", "blend_levels"))
+        sweeps[tag] = {"results": results, "launches": launches, "card": saved["card"]}
+        log(f"sweep {tag} ({saved['card']}): " + "; ".join(
+            f"{r['width']}x{r['height']} {r['ms']:.3f} ms, {r['instances']} instances of "
+            f"{r['enumerated']}, capacity {r['capacity']}" for r in results)
+            + f"; launches {launches}")
+    out["sweeps"] = sweeps
+
+    # the 8,040-tile frame: K1 at the capacities the sweeps settled on, bit
+    # for bit; K2 and the four rounds against their plain versions
+    state, deg, active = fps_test.synthetic_scene(100_000, dev)
+    args = renderer.activated(state, deg)
+    w, h = fps_test.sweep_size((1920, 1080), 2.0)
+    gx, gy = -(-w // 32), -(-h // 32)
+    cam = fps_test.sweep_camera(w, h, dev)
+    cap = {tag: sweeps[tag]["results"][-1]["capacity"] for tag in ("vanilla", "amr")}
+    with torch.no_grad():
+        prep = preprocess(*args, deg, cam, tile=32, active_mask=active)
+        bin_args = (prep.means2d, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched,
+                    prep.rect_min, prep.rect_max, prep.cull_thr, prep.depths)
+        table, cum = binning.compact_table(*bin_args)
+        k1 = {}
+        for k in sorted(set(cap.values())):
+            got = expand.expand_rows_by_segments(table, 0, k)
+            differ = int((got != expand.expand_rows_by_segments_plain(table, 0, k)).sum())
+            k1[k] = {"differ": differ, "values": got.numel()}
+            if differ:
+                raise AssertionError(f"{w}x{h}: expand_seg at {k} slots differs from its plain "
+                                     f"version on {differ} values")
+            del got
+        log(f"{w}x{h}: expand_seg vs plain bit for bit over {table.shape[1]} columns, "
+            f"{int(cum[-1])} enumerated, at " + ", ".join(
+                f"{k} slots ({v['differ']} of {v['values']} values differ)" for k, v in k1.items()))
+        si = binning.build_sorted_instances(*bin_args, gx, gy, cap["vanilla"], 32)
+        if bool(si.binning.overflow):
+            raise AssertionError(f"{w}x{h}: capacity {cap['vanilla']} overflows")
+        feat, offsets = blend.feat_soa_from_rows(si.feat_rows, 128), si.binning.offsets
+        k2 = compare_tiles(f"{w}x{h} blend_fwd", blend.blend_fwd(feat, offsets, gx, gy),
+                           blend.blend_fwd_plain(feat, offsets, gx, gy),
+                           torch.ones((gx * gy, 1024), dtype=torch.bool, device=dev))
+        st = amr.fovea_step0(*args, deg, cam, max_instances=cap["amr"], active_mask=active)
+        if bool(st.overflow):
+            raise AssertionError(f"{w}x{h}: capacity {cap['amr']} overflows step 0")
+        round_errs = hold_rounds(st, gx, gy, f"{w}x{h} ")[0]
+    out["big_frame"] = {"size": [w, h], "tiles": gx * gy, "instances": int(offsets[-1]),
+                        "enumerated": int(cum[-1]), "expand_seg": k1, "blend_fwd_err": k2,
+                        "blend_round_err": round_errs,
+                        "levels": torch.bincount(st.tile_levels, minlength=5)[1:].tolist()}
+    log(f"{w}x{h}: {gx * gy} tiles, {int(offsets[-1])} instances: " + json.dumps(
+        out["big_frame"]))
+
+    # the foveated CLI: the CLI model with a gaze; the synthetic scene at
+    # 1920x1080 (a 24 px last tile row) with a gaze and decimation
+    fov = {}
+    fov_runs = {"model_gaze": ["-m", model, "--gaze"],
+                "synthetic_1080": ["--synthetic", "--width", "1920", "--height", "1080",
+                                   "--gaze", "--decimate", *map(str, DECIMATION)]}
+    for tag, argv in fov_runs.items():
+        path = os.path.join(tmp, f"fov_{tag}.json")
+        with contextlib.redirect_stdout(io.StringIO()):
+            doc, launches = counted(fps_foveated.main, argv + ["--out_json", path])
+        with open(path) as f:
+            if json.load(f) != doc:
+                raise AssertionError(f"foveated {tag}: the JSON differs from the document")
+        missing = [k for k in FOVEATED_KEYS if k not in doc]
+        times = [doc[k] for k in doc if k.endswith("_ms")] + [
+            s["ms"] for s in doc["steps_protocol"]]
+        if missing or not all(math.isfinite(t) and t > 0 for t in times):
+            raise AssertionError(f"foveated {tag}: missing {missing}, times {times}")
+        need_launches(f"foveated {tag}", launches, {"expand_seg": 1, "blend_round": 4,
+                                                    "blend_levels": 1, "blend_fwd": 1})
+        fov[tag] = {"doc": doc, "launches": launches}
+        log(f"foveated CLI {tag}: " + json.dumps(doc))
+    d = fov["synthetic_1080"]["doc"]
+    if "fused_predecimated_ms" not in d or (d["width"], d["height"]) != (1920, 1080):
+        raise AssertionError(f"foveated CLI at 1920x1080: {sorted(d)}")
+    cam = fps_test.sweep_camera(1920, 1080, dev)
+    radii = (1080 / 8, 1080 / 4, 1080 / 2)
+    bg = torch.zeros(3, device=dev)
+    frames = {k: track_render.foveated_view(state, cam, bg, (0.5, 0.5), deg, radii=radii,
+                                            fused=k == "fused", max_instances=d["capacity"])
+              for k in ("five_step", "fused")}
+    if any(bool(f[1].overflow) for f in frames.values()):
+        raise AssertionError("1920x1080 foveated frame: capacity overflow")
+    for img, _ in frames.values():
+        if img.shape != (3, 1080, 1920) or not torch.isfinite(img).all():
+            raise AssertionError(f"1920x1080 foveated frame: shape {tuple(img.shape)}")
+    fused_err = float((frames["fused"][0] - frames["five_step"][0]).abs().max())
+    if not fused_err <= 1e-3:
+        raise AssertionError(f"1920x1080: fused frame differs from the 5-step one by {fused_err}")
+    st = frames["five_step"][1]
+    with torch.no_grad():
+        errs = {"blend_round_err": hold_rounds(st, 60, 34, "1920x1080 ")[0]}
+        for dec in ((1, 1, 1, 1), DECIMATION):
+            errs[f"blend_levels {dec} err"] = hold_levels(st, 60, 34, "1920x1080 ", dec)[0]
+    fov["synthetic_1080_checks"] = {"fused_vs_five_step_err": fused_err, **errs}
+    log(f"1920x1080 foveated: fused vs 5-step frame max |err| {fused_err:.3g}")
+    try:
+        with contextlib.redirect_stderr(io.StringIO()) as err:
+            fps_foveated.main(["--synthetic", "--alpha", "bf16"])
+        raise AssertionError("fps_foveated --alpha bf16 was not refused")
+    except SystemExit as exc:
+        if exc.code != 2 or "pallas_blend.py:291-294" not in err.getvalue():
+            raise AssertionError(f"--alpha bf16: exit {exc.code}, {err.getvalue()!r}")
+    out["foveated"] = fov
+
+    # track_render's main on the CLI model with the synthetic eye
+    eye_path, fov_dir = os.path.join(tmp, "eye.png"), os.path.join(tmp, "foveated")
+    Image.fromarray(make_eye()).save(eye_path)
+    res, launches = counted(run_cli, track_render.main, [
+        "-m", model, "--eye_image", eye_path, "--num_views", "4", "--out_dir", fov_dir,
+        "--quiet"])
+    need_launches("track_render", launches, {"expand_seg": 4, "blend_round": 16},
+                  ("blend_fwd", "blend_levels", "blend_bwd", "segsum"))
+    if launches["blend_round"] != 16 or res["capacities"] != [1 << 20] * 4:
+        raise AssertionError(f"track_render: launches {launches}, capacities "
+                             f"{res['capacities']}")
+    gaze_err = float(np.abs((np.asarray(res["gaze_uv"]) - gaze_uv)
+                            * np.array([EYE_W, EYE_H])).max())
+    if gaze_err > 1.0 or not os.path.exists(os.path.join(model, "eye_seg_pred.png")):
+        raise AssertionError(f"track_render: gaze {res['gaze_uv']} ({gaze_err} px from "
+                             f"estimate_gaze's), segmentation written: "
+                             f"{os.path.exists(os.path.join(model, 'eye_seg_pred.png'))}")
+    scene = Scene(model_config_of(["-m", model]), load_iteration=-1, shuffle=False,
+                  load_images=False)
+    render_err = []
+    for path, view in zip(res["renders"], scene.get_train_cameras()[:4], strict=True):
+        c = view.params(dev)
+        want, _ = track_render.foveated_view(scene.gaussians, c, bg, res["gaze_uv"],
+                                             scene.max_sh_degree,
+                                             radii=track_render.ring_radii(c.width),
+                                             fused=False)
+        got = torch.from_numpy(load_image_chw(path)).to(dev)
+        if got.shape != (3, c.height, c.width):
+            raise AssertionError(f"track_render: {path} is {tuple(got.shape)}")
+        render_err.append(float((got - want.clamp(0, 1)).abs().max()))
+    if not max(render_err) <= 1 / 255 + 1e-3:
+        raise AssertionError(f"track_render renders differ from foveated_view by {render_err}")
+    out["track_render"] = {"gaze_uv": res["gaze_uv"], "view_ms": res["view_ms"],
+                           "render_err": render_err, "launches": launches}
+    log(f"track_render: gaze {res['gaze_uv']}, ms per view {res['view_ms']}, renders vs "
+        f"foveated_view max |err| {render_err}; launches {launches}")
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    from gaussian_splatting_with_eye_tracking_tpu_torch import backend, renderer, train_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch import backend, fps_test, renderer, train_lib
     from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
     from gaussian_splatting_with_eye_tracking_tpu_torch.models import ply_io
     from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning, blend, expand
@@ -902,9 +1196,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+    smi = fps_test.card(dev)
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
 
@@ -1170,8 +1462,11 @@ def main() -> int:
     train = train_phase(params, cams, images, bg)
     # -- 13. backward kernels vs plain versions, timings ----------------------
     bwd = backward_checks(train["state8"], cams[0], images[0], bg, train["step"])
-    # -- 14. the CLIs on a synthesized COLMAP scene ------------------------------
-    cli = cli_phase()
+    # -- 14-15. the CLIs on a synthesized COLMAP scene, then the serving-side
+    # entry points on the model they trained and on fps_test's scene ---------
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = cli_phase(tmp)
+        entries = entry_phase(tmp, gaze_uv)
 
     src = "gaussian_splatting_with_eye_tracking_tpu_torch/csrc/{}.cu"
     kernels = [
@@ -1204,6 +1499,7 @@ def main() -> int:
                     "step": bwd["step"], "card": smi}))
     log(json.dumps({"foveated": fov, "eye": eye_info, "card": smi}))
     log(json.dumps({"cli": cli, "card": smi}))
+    log(json.dumps({"entry_points": entries, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -133,3 +133,11 @@ def get_combined_args(parser: ArgumentParser, argv: Optional[List[str]] = None) 
         if v is not None:
             merged[k] = v
     return Namespace(**merged)
+
+
+def model_config_of(argv: List[str]) -> ModelConfig:
+    """The ``ModelConfig`` of a model directory: ``argv`` (``-m`` and any
+    model flags) overlaid on its ``cfg_args``."""
+    parser = ArgumentParser()
+    add_config_args(parser, ModelConfig(), "Model Parameters", sentinel=True)
+    return extract_config(get_combined_args(parser, argv), ModelConfig)

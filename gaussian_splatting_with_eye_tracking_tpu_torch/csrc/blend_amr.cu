@@ -187,7 +187,7 @@ __device__ __forceinline__ void round_tile_split(
           bits &= bits - 1u;
           const float dx = f[0][l] - px[0];
           const float dy = f[1][l] - py[0];
-          const float power = (s.ha[l] * dx + s.nb[l] * dy) * dx + (s.hc[l] * dy) * dy;
+          const float power = gate_power(s.ha[l], s.nb[l], s.hc[l], dx, dy);
           const float g = power + s.lo[l];
           if (g >= LOG_GATE && power <= 0.f) {
             const float alpha_raw = expf(g);  // IEEE expf: the gate is exact

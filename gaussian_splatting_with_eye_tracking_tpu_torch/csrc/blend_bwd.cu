@@ -176,7 +176,7 @@ blend_bwd_kernel(const float* __restrict__ feat, int kp,
         for (int j = 0; j < PPT; ++j) {
           const float dx = fx - px[j];
           const float dy = fy - py[j];
-          const float power = (ha * dx + nb * dy) * dx + (hc * dy) * dy;
+          const float power = gate_power(ha, nb, hc, dx, dy);
           const float g = power + lo;
           if (g >= LOG_GATE && power <= 0.f) {
             const float alpha_raw = expf(g);  // IEEE expf: the gate is exact

@@ -21,7 +21,8 @@
 //     n_full = n ? ceil((o+n-start)/128) : 0; lanes outside [o, o+n) get
 //     log(op) = -inf;
 //   - alpha_raw = exp(power + log op), alpha = min(0.99, alpha_raw), kept
-//     iff power <= 0 && alpha_raw >= 1/255, with the FMA-chained power;
+//     iff power <= 0 && alpha_raw >= 1/255, with the power rounded as the
+//     plain versions round it (stage.cuh's gate_power, no FMA);
 //   - transmittance stays in log space: w = alpha * exp(logT + local)
 //     with local the chunk's exclusive prefix of log(1 - alpha), and
 //     logT += the chunk's sum after the chunk;
@@ -110,7 +111,7 @@ __device__ __forceinline__ void composite(
         for (int j = 0; j < NR; ++j) {
           const float dx = fx - px[j];
           const float dy = fy - py[j];
-          const float power = (ha * dx + nb * dy) * dx + (hc * dy) * dy;
+          const float power = gate_power(ha, nb, hc, dx, dy);
           const float g = power + lo;
           if (g >= LOG_GATE && power <= 0.f) {
             const float alpha_raw = expf(g);  // IEEE expf: the gate is exact

@@ -19,8 +19,14 @@
 // 1/255. The compositors test power + log op >= LOG_GATE first: LOG_GATE
 // is ln(1/255) less 1e-5, far beyond expf's 2-ulp error, so a pair that
 // fails it cannot pass the exact gate and the exp is skipped; a pair that
-// passes still takes the exact test. The kept set is the one the plain
-// versions compute.
+// passes still takes the exact test. The power is gate_power(): each
+// product and sum rounded on its own, in the plain versions' order. nvcc
+// would otherwise contract it into FMAs, whose power differs from theirs
+// by an ulp now and then; a pair whose alpha sits within that ulp of 1/255
+// is then kept on one side only, and the pixel differs by up to 1/255 of
+// its transmittance (up to 8.3e-4 on 8 of 8.2M pixels at 3840x2144 on an
+// H100; gate_probe.py shows each). With gate_power the kept set is the one
+// the plain versions compute on the card.
 //
 // The extent. With the conic C = [[a, b], [b, c]] and tau = log op +
 // ln 255, power + log op >= ln(1/255) is d^T C d <= 2 tau, an ellipse whose
@@ -148,6 +154,14 @@ __device__ __forceinline__ void prepare(Stage& s, int buf, int id0, int o, int n
     s.lo[l] = lo;
     s.warps[l] = gate_warps(s.wbox, f[0][l], f[1][l], a, b, c, lo);
   }
+}
+
+// The power -a/2 dx^2 - b dx dy - c/2 dy^2 as the plain versions round it,
+// (ha dx + nb dy) dx + (hc dy) dy, with no FMA contraction (see the gate).
+__device__ __forceinline__ float gate_power(float ha, float nb, float hc, float dx,
+                                            float dy) {
+  return __fadd_rn(__fmul_rn(__fadd_rn(__fmul_rn(ha, dx), __fmul_rn(nb, dy)), dx),
+                   __fmul_rn(__fmul_rn(hc, dy), dy));
 }
 
 // This warp's instances among lanes [32q, 32q + 32) of the prepared chunk.

@@ -64,6 +64,7 @@ class AMRState(NamedTuple):
     color: torch.Tensor  # (3, H', W') accumulated image (pre-crop)
     final_t: torch.Tensor  # (H', W')
     num_instances: torch.Tensor
+    num_enumerated: torch.Tensor  # () int32 rect pairs before the ellipse cull
     overflow: torch.Tensor
     # the 5-step frame's tile launch order (``blend.round_order``), made by
     # its first round and reused by the other three
@@ -154,7 +155,7 @@ def fovea_step0(means3d, scales, quats, opacities, sh, sh_degree, cam: CameraPar
         offsets=b.offsets, tile_levels=levels, tile_levels_last=torch.zeros_like(levels),
         color=torch.zeros((3, grid_y * TILE, grid_x * TILE), device=dev),
         final_t=torch.ones((grid_y * TILE, grid_x * TILE), device=dev),
-        num_instances=b.num_instances, overflow=b.overflow,
+        num_instances=b.num_instances, num_enumerated=b.num_enumerated, overflow=b.overflow,
     )
 
 

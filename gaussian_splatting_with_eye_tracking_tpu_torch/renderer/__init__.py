@@ -2,8 +2,8 @@
 
 Port of ``sh_band_mask`` and ``render`` from
 ``gaussian_splatting_with_eye_tracking_tpu/renderer/__init__.py``: apply the
-model activations, mask the SH bands above the state's active degree, and
-call the rasterizer (differentiable; ``means2d_offset`` is the handle for
+model activations and mask the SH bands above the state's active degree
+(``activated``), and call the rasterizer (differentiable; ``means2d_offset`` is the handle for
 the screen-space gradient).
 """
 
@@ -26,6 +26,15 @@ def sh_band_mask(sh_degree: int, max_sh_degree: int, device=None) -> torch.Tenso
     return band <= sh_degree
 
 
+def activated(state: gm.GaussianModelState, max_sh_degree: int) -> tuple:
+    """(means, scales, rotations, opacities, SH with the bands above the
+    state's active degree zeroed): the rasterizer's inputs."""
+    p = state.params
+    mask = sh_band_mask(state.sh_degree, max_sh_degree, p.xyz.device)
+    sh = gm.get_sh(p) * mask[None, None, :]
+    return p.xyz, gm.get_scaling(p), p.rotation, gm.get_opacity(p), sh
+
+
 def render(
     cam: CameraParams,
     state: gm.GaussianModelState,
@@ -37,15 +46,8 @@ def render(
     max_instances: int = 1 << 20,
     max_live: Optional[int] = None,
 ) -> rast.RenderOut:
-    p = state.params
-    mask = sh_band_mask(state.sh_degree, max_sh_degree, p.xyz.device)
-    sh = gm.get_sh(p) * mask[None, None, :]
     return rast.rasterize(
-        p.xyz,
-        gm.get_scaling(p),
-        p.rotation,
-        gm.get_opacity(p),
-        sh,
+        *activated(state, max_sh_degree),
         cam,
         bg,
         sh_degree=max_sh_degree,

@@ -3,8 +3,8 @@
 Port of ``StepAux``, ``make_train_step``, ``densify_step``,
 ``make_eval_render`` and ``camera_arrays`` from
 ``gaussian_splatting_with_eye_tracking_tpu/train_lib.py``, with
-``render_view`` (a render that grows its capacity past an overflow) for
-the CLIs' evaluations and renders. The train step
+``render_grown`` (a render that grows its capacity past an overflow) and
+``render_view`` for the CLIs' evaluations and renders. The train step
 runs render -> (1-λ)·L1 + λ·(1-SSIM) -> backward (through the backward
 compositor and the segment sum) -> per-group Adam -> densification
 statistics; density control runs between steps. Entry points run on CUDA
@@ -147,18 +147,33 @@ def make_eval_render(max_sh_degree, width, height, max_instances=1 << 20,
     return eval_render
 
 
+def render_grown(render, max_instances: int):
+    """``render(capacity) -> (image, counters)``, with ``counters`` a
+    ``RenderOut`` or an AMR state, at ``max_instances`` or, if the view's
+    instances overflow it, again at the next power of two that holds them.
+    Returns (image, counters, capacity); raises if that overflows too."""
+    image, counters = render(max_instances)
+    if bool(counters.overflow):
+        max_instances = gm.next_pow2(int(counters.num_enumerated) + 1)
+        image, counters = render(max_instances)
+        if bool(counters.overflow):
+            raise RuntimeError(f"{int(counters.num_enumerated)} instances overflow the grown "
+                               f"capacity {max_instances}")
+    return image, counters, max_instances
+
+
 def render_view(state, cam_params, bg, max_sh_degree: int, max_instances: int):
     """(color (3, H, W), capacity) of one view rendered without autograd at
     ``max_instances`` or, if the view's instances overflow it, again at
     the next power of two that holds them (the capacity returned)."""
-    with torch.no_grad():
+    def render(cap):
         out = renderer.render(cam_params, state, bg, max_sh_degree=max_sh_degree,
-                              max_instances=max_instances)
-        if bool(out.overflow):
-            max_instances = gm.next_pow2(int(out.num_enumerated) + 1)
-            out = renderer.render(cam_params, state, bg, max_sh_degree=max_sh_degree,
-                                  max_instances=max_instances)
-    return out.color, max_instances
+                              max_instances=cap)
+        return out.color, out
+
+    with torch.no_grad():
+        color, _, max_instances = render_grown(render, max_instances)
+    return color, max_instances
 
 
 def camera_arrays(cam: CameraParams):

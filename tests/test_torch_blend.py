@@ -264,3 +264,35 @@ def test_round_order_small_example():
     counts = torch.tensor([100, 40, 0, 50, 400, 25, 40], dtype=torch.int32)
     levels = torch.tensor([1, 4, 4, 2, 1, 4, 4], dtype=torch.int32)
     assert tblend.round_order(counts, levels).tolist() == [1, 6, 5, 2, 3, 4, 0]
+
+
+@pytest.mark.parametrize("turned", [2, 4])
+def test_gate_probe_finds_the_turned_pair(turned):
+    """gate_probe.explain, given a pixel that differs from the plain walk
+    by one pair at the 1/255 gate kept on one side only, names that pair
+    and reproduces the pixel."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import gate_probe
+
+    rng = np.random.default_rng(turned)
+    n, x, y = 7, 10.0, 20.0
+    f = np.zeros((16, 128), np.float32)
+    f[0, :n], f[1, :n] = x + rng.uniform(-2, 2, n), y + rng.uniform(-2, 2, n)
+    f[2, :n], f[3, :n], f[4, :n] = rng.uniform(0.2, 1, n), 0.05, rng.uniform(0.2, 1, n)
+    f[5:8, :n] = rng.uniform(size=(3, n))
+    f[8, :n] = rng.uniform(0.3, 0.9, n)
+    dx, dy = np.float64(f[0, turned] - x), np.float64(f[1, turned] - y)
+    power = -0.5 * f[2, turned] * dx * dx - f[3, turned] * dx * dy - 0.5 * f[4, turned] * dy * dy
+    f[8, turned] = np.exp(gate_probe.LN_GATE + 1e-7 - power)
+    feat = torch.from_numpy(f)
+    t = feat[:9, :n]
+    power = (-0.5 * t[2] * (t[0] - x) - t[3] * (t[1] - y)) * (t[0] - x) \
+        + (-0.5 * t[4] * (t[1] - y)) * (t[1] - y)
+    alpha_raw = torch.exp(power + torch.log(t[8]))
+    keep = (power <= 0) & (alpha_raw >= tblend.ALPHA_MIN)
+    plain = gate_probe.walk(t, keep, alpha_raw).float()
+    keep[turned] = ~keep[turned]
+    kernel = gate_probe.walk(t, keep, alpha_raw).float()
+    assert float((kernel - plain).abs().max()) > 1e-4
+    row = gate_probe.explain(feat, 0, n, 1, x, y, kernel, plain)
+    assert row["walk_vs_plain"] < 1e-6 and row["best_turn"]["pair"] == turned
+    assert row["best_turn"]["turned_vs_kernel"] < 1e-6

@@ -21,6 +21,8 @@ the CPU (``--data_device cpu``), at test scale.
   cameras.json, the PLY and the checkpoint, resumes from the checkpoint,
   and renders and scores (PSNR > 5); the overflow redo; the failures.
 - LPIPS's arithmetic with seeded random weights within 1e-5 of JAX's.
+- track_render's main on the 30-step model: the gaze within 1 px of
+  JAX's, each 5-step foveated render within 1/255 + 1e-3 of JAX's.
 """
 
 import json
@@ -28,24 +30,37 @@ import os
 import shutil
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from PIL import Image
 
+import chip_smoke as cs
 import render as jax_render_cli
+import track_render as jax_track_render
 import train as jax_train_cli
 from gaussian_splatting_with_eye_tracking_tpu import metrics_lib as jmetrics
 from gaussian_splatting_with_eye_tracking_tpu.config import ModelConfig as JModelConfig
 from gaussian_splatting_with_eye_tracking_tpu.config import OptimizationConfig as JOpt
 from gaussian_splatting_with_eye_tracking_tpu.config import PipelineConfig as JPipe
+from gaussian_splatting_with_eye_tracking_tpu.models import gaussian_model as jgm
 from gaussian_splatting_with_eye_tracking_tpu.models import ply_io as jply
-from gaussian_splatting_with_eye_tracking_tpu_torch import metrics, metrics_lib, render, train
+from gaussian_splatting_with_eye_tracking_tpu.ops import amr as jamr
+from gaussian_splatting_with_eye_tracking_tpu.ops.projection import CameraParams as JCameraParams
+from gaussian_splatting_with_eye_tracking_tpu_torch import (
+    metrics,
+    metrics_lib,
+    render,
+    track_render,
+    train,
+)
 from gaussian_splatting_with_eye_tracking_tpu_torch.config import ModelConfig, OptimizationConfig
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import checkpoint as ckpt
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as tgm
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import ply_io as tply
+from gaussian_splatting_with_eye_tracking_tpu_torch.scene import Scene
 from gaussian_splatting_with_eye_tracking_tpu_torch.scene.dataset_readers import (
     detect_and_read_scene,
 )
@@ -254,6 +269,57 @@ def test_cli_renders_and_scores(cli_run):
         assert "00000.png" in json.load(f)["ours_30"]["PSNR"]
 
 
+def test_track_render_matches_jax(cli_run, tmp_path):
+    """track_render's main on the 30-step model (64x48 views, so the last
+    tile row is 16 px) with a 128x96 eye image: the gaze within 1 px of
+    JAX's ``estimate_gaze`` on the same file, the segmentation written,
+    and each render within 1/255 + 1e-3 of JAX's 5-step frame
+    (``amr.render_amr``, interpret mode) for that gaze with the rings
+    (W/8, W/4, W/2)."""
+    root, model, _ = cli_run
+    eye_path = str(tmp_path / "eye.png")
+    Image.fromarray(cs.make_eye(height=96, width=128)).save(eye_path)
+    out_dir = str(tmp_path / "foveated")
+    got = _cli(track_render.main, ["-m", model, "--eye_image", eye_path, "--num_views", "2",
+                                   "--out_dir", out_dir, "--quiet"])
+    juv, _ = jax_track_render.estimate_gaze(eye_path)
+    uv = np.asarray(got["gaze_uv"])
+    assert np.abs((uv - juv) * np.array([128, 96])).max() <= 1.0
+    assert _levels(os.path.join(model, "eye_seg_pred.png")).shape == (96, 128, 3)
+    assert got["renders"] == [os.path.join(out_dir, f"foveated_{i:03d}.png") for i in (0, 1)]
+    assert got["capacities"] == [1 << 20] * 2 and len(got["view_ms"]) == 2
+
+    scene = Scene(ModelConfig(source_path=root, model_path=model, data_device="cpu",
+                              eval=True), load_iteration=-1, shuffle=False, load_images=False)
+    p, deg = jply.load_gaussians_ply(os.path.join(model, "point_cloud", "iteration_30",
+                                                  "point_cloud.ply"))
+    args = (p.xyz, jgm.get_scaling(p), p.rotation, jgm.get_opacity(p), jgm.get_sh(p))
+    cams = [cam.params("cpu") for cam in scene.get_train_cameras()[:2]]
+    c = cams[0]
+    assert {(x.tan_fovx, x.tan_fovy, x.width, x.height) for x in cams} == {
+        (c.tan_fovx, c.tan_fovy, c.width, c.height)}
+    radii = jnp.asarray(track_render.ring_radii(c.width), jnp.float32)
+    assert radii[0] < radii[1] < radii[2]
+    gaze = jnp.asarray([uv[0] * c.width, uv[1] * c.height], jnp.float32)
+
+    @jax.jit
+    def frame(view, proj, campos):
+        jcam = JCameraParams(viewmatrix=view, projmatrix=proj, campos=campos,
+                             tan_fovx=c.tan_fovx, tan_fovy=c.tan_fovy, width=c.width,
+                             height=c.height)
+        return jamr.render_amr(*args, deg, jcam, jnp.zeros(3), impl="pallas", interpret=True,
+                               max_instances=1 << 14, gaze_xy=gaze, gaze_radii=radii)
+
+    for path, view in zip(got["renders"], cams):
+        want, st = frame(*(jnp.asarray(x.numpy()) for x in (view.viewmatrix, view.projmatrix,
+                                                            view.campos)))
+        assert not bool(st.overflow) and len(set(np.asarray(st.tile_levels).tolist())) >= 2
+        rendered = _levels(path)
+        assert rendered.shape == (view.height, view.width, 3) == (48, 64, 3)
+        diff = np.abs(rendered.transpose(2, 0, 1) / 255.0 - np.clip(np.asarray(want), 0, 1))
+        assert diff.max() <= 1 / 255 + 1e-3 and rendered.max() > 0
+
+
 def test_overflow_redo(tmp_path):
     """A tiny instance capacity: the first step overflows, the capacity
     grows and the step is redone; training ends with finite parameters."""
@@ -303,6 +369,8 @@ def test_clis_need_a_card_unless_told(no_cuda, tmp_path):
         _cli(render.main, ["-m", model, "--quiet"])
     with pytest.raises(RuntimeError, match="CUDA"):
         _cli(metrics.main, ["-m", model, "--no_lpips"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _cli(track_render.main, ["-m", model, "--quiet", "--eye_image", "eye.png"])
 
 
 @pytest.mark.parametrize("cli,flag", [

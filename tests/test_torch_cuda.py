@@ -16,13 +16,19 @@ the whole render, its gradients, a train step, a fused foveated frame and
 RITnet on the card against the same on the CPU (forward atol 3e-4 / rtol
 1e-3 with the integer outputs exact; gradients atol 2e-3 / rtol 5e-3, the
 tolerance of tests/test_pallas_blend.py's gradient tests; RITnet logits
-within 1e-3 of their largest magnitude)."""
+within 1e-3 of their largest magnitude); the compositors on a frame
+whose sides are not multiples of 32, and the frame-rate sweep's capacity
+regrow on the card. The compositors keep exactly the plain versions'
+pairs at the 1/255 gate, on inputs where an FMA-contracted power would
+turn some (checked on the host)."""
 
 import numpy as np
 import pytest
 import torch
 
 import chip_smoke as cs
+from gaussian_splatting_with_eye_tracking_tpu_torch import fps_test, renderer
+from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as tgm
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import amr, binning, blend, expand, segsum
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import rasterize as trast
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops.projection import preprocess
@@ -95,7 +101,7 @@ def test_expand_rows_kernel_bit_exact(dev, dead_frac):
 def _scene_features(dev, n=3000, w=256, h=192, max_instances=1 << 16):
     g = [x.to(dev) for x in random_scene(n, seed=3, sh_degree=1)]
     prep = preprocess(*g, 1, front_camera(w, h, dev))
-    gx, gy = w // 32, h // 32
+    gx, gy = -(-w // 32), -(-h // 32)
     si = binning.build_sorted_instances(
         prep.means2d, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched,
         prep.rect_min, prep.rect_max, prep.cull_thr, prep.depths, gx, gy,
@@ -439,6 +445,78 @@ def _edge_inputs(kind, dev):
     return to_torch(feat).to(dev), to_torch(offsets).to(dev), gx, gy
 
 
+def _power_edge_inputs(dev):
+    """16 instances a tile (16 x 8 tiles), each 0.3-1.3 px off its own
+    target pixel (even x and y: K2's, round 1's and every level's), with
+    a random conic and its opacity within 3 ulps of the value at which the
+    target's power + log op, rounded as the plain version rounds it, meets
+    ln(1/255). Returns (feat, offsets, gx, gy) and the number of targets
+    whose gate decision an FMA-contracted power would turn."""
+    rng = np.random.default_rng(13)
+    gx, gy, m = 16, 8, 16
+    f32 = np.float32
+    tiles, turned = [], 0
+    for t in range(gx * gy):
+        k = np.arange(m)
+        px = ((t % gx) * 32 + 2 + 8 * (k % 4)).astype(f32)
+        py = ((t // gx) * 32 + 2 + 8 * (k // 4)).astype(f32)
+        x = (px + rng.uniform(0.3, 1.3, m) * rng.choice([-1, 1], m)).astype(f32)
+        y = (py + rng.uniform(0.3, 1.3, m) * rng.choice([-1, 1], m)).astype(f32)
+        a, c = rng.uniform(0.3, 1.5, m), rng.uniform(0.3, 1.5, m)
+        b = rng.uniform(-0.5, 0.5, m) * np.sqrt(a * c)
+        conic = np.stack([a, b, c]).astype(f32)
+        ha, nb, hc = f32(-0.5) * conic[0], -conic[1], f32(-0.5) * conic[2]
+        dx, dy = x - px, y - py
+        power = (ha * dx + nb * dy) * dx + (hc * dy) * dy
+        op = (np.exp(np.log(1 / 255) - power.astype(np.float64))
+              * (1 + rng.integers(-3, 4, m) * 2.0 ** -23)).astype(f32)
+        lo = np.log(op)
+
+        def fma(u, v, w):
+            return (u.astype(np.float64) * v + w.astype(np.float64)).astype(f32)
+
+        def kept(pw):
+            return (pw <= 0) & (np.exp(pw + lo) >= f32(1 / 255))
+
+        inner = (fma(ha, dx, nb * dy), fma(nb, dy, ha * dx))
+        fused = [p for i in inner for p in (fma(i, dx, (hc * dy) * dy), fma(hc * dy, dy, i * dx))]
+        turned += int(np.any([kept(p) != kept(power) for p in fused], axis=0).sum())
+        tiles.append(_instances(rng, m, x, y, conic, op))
+    feat, offsets = _csr(tiles)
+    return (to_torch(feat).to(dev), to_torch(offsets).to(dev), gx, gy), turned
+
+
+def test_power_edge_inputs_can_turn_the_gate():
+    """The power-edge inputs hold pairs whose gate an FMA-contracted power
+    decides otherwise than the plain version's (computed on the host)."""
+    (_, offsets, gx, gy), turned = _power_edge_inputs("cpu")
+    assert int(offsets[-1]) == 16 * gx * gy and turned >= 20
+
+
+def test_compositors_keep_the_plain_gate_set(dev):
+    """On the power-edge inputs K2, K3, the four rounds and K5 keep the
+    pairs the plain versions keep: a pair kept on one side only moves its
+    target pixel by ~1/255 of the transmittance, 40x the tolerance."""
+    (feat, offsets, gx, gy), _ = _power_edge_inputs(dev)
+    got = blend.blend_fwd(feat, offsets, gx, gy)
+    want = blend.blend_fwd_plain(feat, offsets, gx, gy)
+    _assert_rows_match(got, want)
+    cot = _cotangent(got, 4)
+    assert_rows_close(blend.blend_bwd(feat, offsets, got, cot, gx, gy),
+                      blend.blend_bwd_plain(feat, offsets, got, cot, gx, gy))
+    counts = (offsets[1:] - offsets[:-1]).to(torch.int32)
+    levels = torch.full_like(counts, 4)
+    order = blend.round_order(counts, levels)
+    for rnd in range(1, 5):
+        kw = dict(offx=blend.ROUND_OFFX[rnd - 1], offy=blend.ROUND_OFFY[rnd - 1],
+                  counts_override=counts)
+        _assert_rows_match(blend.blend_round(feat, offsets, gx, gy, **kw, order=order,
+                                             split=amr.ROUND_SPLIT[rnd - 1]),
+                           blend.blend_round_plain(feat, offsets, gx, gy, **kw))
+    _assert_rows_match(blend.blend_levels(feat, offsets, counts, levels, gx, gy),
+                       blend.blend_levels_plain(feat, offsets, counts, levels, gx, gy))
+
+
 def _bits(x):
     return x.contiguous().view(torch.int32)
 
@@ -696,3 +774,68 @@ def test_round_kernel_refuses_bad_split_and_order(dev):
         blend.blend_round(feat, offsets, gx, gy, offx=0, offy=0,
                           order=torch.arange(gx * gy, dtype=torch.int32, device=dev))
     assert blend.BLEND_ROUND.launches == before
+
+
+def test_kernels_on_a_frame_not_a_multiple_of_32(dev):
+    """A 200x136 frame (7x5 tiles; the last column and row 8 px): K2, the
+    four AMR rounds (the frame's one launch order, split as the 5-step
+    frame splits them) and K5 against their plain versions, and the whole
+    frames (rasterize, the 5-step and the fused foveated frame) on the
+    card against the CPU, cropped to 200x136."""
+    w, h = 200, 136
+    feat, offsets, gx, gy = _scene_features(dev, w=w, h=h)
+    assert (gx, gy) == (7, 5)
+    _assert_rows_match(blend.blend_fwd(feat, offsets, gx, gy),
+                       blend.blend_fwd_plain(feat, offsets, gx, gy))
+    counts = (offsets[1:] - offsets[:-1]).to(torch.int32)
+    gen = torch.Generator().manual_seed(5)
+    levels = torch.randint(1, 5, (gx * gy,), generator=gen, dtype=torch.int32).to(dev)
+    order = blend.round_order(counts, levels)
+    for rnd in range(1, 5):
+        kw = dict(offx=blend.ROUND_OFFX[rnd - 1], offy=blend.ROUND_OFFY[rnd - 1],
+                  counts_override=torch.where(levels >= rnd, counts, 0))
+        got = blend.blend_round(feat, offsets, gx, gy, **kw, order=order,
+                                split=amr.ROUND_SPLIT[rnd - 1])
+        _assert_rows_match(got, blend.blend_round_plain(feat, offsets, gx, gy, **kw))
+    rows = (torch.arange(1024, device=dev)[None, :] // 256) < levels[:, None]
+    got = blend.blend_levels(feat, offsets, counts, levels, gx, gy)
+    _assert_rows_match(got, blend.blend_levels_plain(feat, offsets, counts, levels, gx, gy),
+                       rows)
+    assert not got[~rows].any()
+
+    g = random_scene(3000, seed=3, sh_degree=1)
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    gaze = dict(gaze_xy=torch.tensor([150.0, 100.0]), gaze_radii=torch.tensor([20.0, 40.0, 80.0]))
+    frames = {"rasterize": lambda a, cam, b, d: trast.rasterize(
+                  *a, cam, b, sh_degree=1, max_instances=1 << 16).color,
+              "five_step": lambda a, cam, b, d: amr.render_amr(
+                  *a, 1, cam, b, max_instances=1 << 16,
+                  **{k: v.to(d) for k, v in gaze.items()})[0],
+              "fused": lambda a, cam, b, d: amr.render_amr_fused(
+                  *a, 1, cam, b, max_instances=1 << 16,
+                  **{k: v.to(d) for k, v in gaze.items()})[0]}
+    for name, fn in frames.items():
+        want = fn(g, front_camera(w, h), bg, "cpu")
+        got = fn([x.to(dev) for x in g], front_camera(w, h, dev), bg.to(dev), dev)
+        assert got.shape == want.shape == (3, h, w), name
+        assert torch.allclose(got.cpu(), want, atol=3e-4, rtol=1e-3), name
+
+
+@pytest.mark.parametrize("amr_mode", [False, True], ids=["vanilla", "amr"])
+def test_sweep_regrows_an_overflowing_capacity(dev, amr_mode, tmp_path, monkeypatch):
+    """fps_test's sweep started at a capacity the view overflows: it
+    renders again at the next power of two that holds the view, the same
+    bits as a render at a capacity that holds it from the start."""
+    monkeypatch.setattr(fps_test, "REPS", 1)
+    state, deg, active = fps_test.synthetic_scene(1000, dev)
+    (r,) = fps_test.run_sweep(state, deg, active, base=(128, 96), ratios=[1.0],
+                              amr_mode=amr_mode, out_json=str(tmp_path / "fps.json"),
+                              max_instances=256, device=dev)
+    assert r["enumerated"] > 256 and r["capacity"] == tgm.next_pow2(r["enumerated"] + 1)
+    args = renderer.activated(state, deg)
+    cam, bg = fps_test.sweep_camera(128, 96, dev), torch.zeros(3, device=dev)
+    grown = fps_test.render_at_capacity(args, deg, active, cam, bg, 256, amr_mode)
+    want = fps_test.render_at_capacity(args, deg, active, cam, bg, 1 << 14, amr_mode)
+    assert grown[1:] == (r["capacity"], r["instances"], r["enumerated"])
+    assert want[1:] == (1 << 14, r["instances"], r["enumerated"])
+    assert torch.equal(grown[0], want[0])

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from gaussian_splatting_with_eye_tracking_tpu_torch import backend, fps_foveated, track_render
+from gaussian_splatting_with_eye_tracking_tpu_torch import backend, bench, fps_foveated, fps_test
+from gaussian_splatting_with_eye_tracking_tpu_torch import fps_test_amr, track_render
 from gaussian_splatting_with_eye_tracking_tpu_torch import scene_synth, train_lib
 from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import checkpoint as ckpt
@@ -105,9 +106,10 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
 
 
 def test_foveated_entry_points_raise_without_cuda(no_cuda):
-    """RITnet's loader and preprocessing, estimate_gaze and the foveated
-    timing run on the card unless told otherwise; with device="cpu" they
-    run on the CPU, and the timing says that it took the host clock."""
+    """RITnet's loader and preprocessing, estimate_gaze, the foveated
+    timing, the frame-rate sweeps and the bench run on the card unless told
+    otherwise; with device="cpu" they run on the CPU, and the timing says
+    that it took the host clock."""
     import chip_smoke as cs
 
     eye = cs.make_eye(height=64, width=96)
@@ -120,7 +122,12 @@ def test_foveated_entry_points_raise_without_cuda(no_cuda):
                  lambda: ritnet.preprocess_eye_image(eye),
                  lambda: track_render.estimate_gaze(eye),
                  lambda: fps_foveated.run_foveated_breakdown(state, cam, bg, max_sh_degree=0),
-                 lambda: fps_foveated.main(["--num_gaussians", "8"])):
+                 lambda: fps_foveated.main(["--num_gaussians", "8"]),
+                 lambda: fps_test.run_sweep(state, 0, state.active),
+                 lambda: fps_test.main(["--synthetic", "--num_gaussians", "8"]),
+                 lambda: fps_test_amr.main(["--num_gaussians", "8"]),
+                 lambda: bench.measure(),
+                 lambda: bench.main([])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert ritnet.preprocess_eye_image(eye, device="cpu").device.type == "cpu"
@@ -130,7 +137,7 @@ def test_foveated_entry_points_raise_without_cuda(no_cuda):
         state, cam, bg, max_sh_degree=0, gaze_xy=torch.tensor([16.0, 16.0]),
         radii=torch.tensor([8.0, 16.0, 24.0]), max_instances=1 << 10, reps=1, device="cpu")
     assert out["device"] == "cpu" and out["timer"] == "host clock"
-    assert len(out["steps_ms"]) == 5 and out["plain_ms"] > 0
+    assert len(out["steps_protocol"]) == 5 and out["plain_forward_ms"] > 0
     assert sum(out["level_histogram"]) == 1 and "fused_predecimated_ms" in out
 
 
