@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, eye-tracked foveated serving and
-training paths, and its train -> render -> metrics CLIs, on one CUDA card
-and check them.
+training paths, its train -> render -> metrics CLIs, its entry points and
+RITnet's training and evaluation, on one CUDA card and check them.
 
 Run from the repository root, with no arguments:
 
@@ -113,7 +113,26 @@ Phases (any failure raises and the script exits non-zero):
     views: the renders at the camera size, ``eye_seg_pred.png`` written,
     the gaze within 1 px of phase 7's, each render within 1/255 + 1e-3 of
     ``foveated_view``'s 5-step frame, ``blend_round`` 4 times per view;
-16. print a ``{"kernels": [...]}`` line, then as the last line
+16. RITnet training and evaluation at full width (32 channels, 249,220
+    parameters) on a synthetic OpenEDS-style dataset written from a seed
+    (16 training and 8 validation eyes at 640x400, PNG images and .npy
+    class maps of the same geometry as phase 7's eye): ``train_ritnet`` for
+    2 epochs at batch 8 (every loss, parameter and BatchNorm statistic
+    finite, ``running_var`` above -1e-5, both ``.npz`` files load back bit
+    for bit, no hand-written kernel launched: the path is cuDNN
+    convolutions); one ``make_train_step`` step on the card and on the CPU
+    from the same JAX-scheme parameters on the same batch of 2 (loss within
+    1e-4 relative, the card's gradients within 1e-4 of each tensor's
+    largest of a float64 run on the card, updates within 1 % of a learning
+    rate where the gradient is clear of rounding, at most 1 % of the
+    elements not); 30 steps on one batch of 8 lower the
+    loss; ``eval_ritnet`` with the trained weights and the labels (its mIoU
+    line, a label map and a mask per image) and with the vendored weights
+    on phase 7's eye (its class map equal to ``estimate_gaze``'s); timings:
+    the train step alone at 8x1x400x640 with its peak memory and fp32
+    bound, the host's time per batch of 8 by part, the eval forward per
+    image and each epoch's wall time;
+17. print a ``{"kernels": [...]}`` line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
@@ -172,19 +191,46 @@ def log(*args):
     print(*args, flush=True)
 
 
-def make_eye(seed=0, height=EYE_H, width=EYE_W, gaze_uv=EYE_GAZE_UV):
-    """A synthetic grayscale eye (uint8): skin, a sclera ellipse, an iris
-    and a dark pupil centred at gaze_uv * (width, height), with noise."""
-    rng = np.random.default_rng(seed)
+def eye_label(height=EYE_H, width=EYE_W, gaze_uv=EYE_GAZE_UV):
+    """The synthetic eye's class map (int32, RITnet's classes): 0 skin, 1 a
+    sclera ellipse, 2 an iris and 3 a pupil centred at gaze_uv * (width,
+    height), each drawn over the one before."""
     yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
-    img = np.full((height, width), 150.0)  # skin
+    label = np.zeros((height, width), np.int32)
     sclera = ((xx - width / 2) / (0.42 * width)) ** 2 + ((yy - height / 2) / (0.3 * height)) ** 2
-    img[sclera <= 1.0] = 215.0
+    label[sclera <= 1.0] = 1
     r = np.hypot(xx - gaze_uv[0] * width, yy - gaze_uv[1] * height)
-    img[r <= 0.19 * height] = 95.0  # iris
-    img[r <= 0.08 * height] = 25.0  # pupil
+    label[r <= 0.19 * height] = 2
+    label[r <= 0.08 * height] = 3
+    return label
+
+
+def make_eye(seed=0, height=EYE_H, width=EYE_W, gaze_uv=EYE_GAZE_UV):
+    """A synthetic grayscale eye (uint8): ``eye_label``'s classes as gray
+    levels (skin 150, sclera 215, iris 95, pupil 25), with noise."""
+    rng = np.random.default_rng(seed)
+    img = np.array([150.0, 215.0, 95.0, 25.0])[eye_label(height, width, gaze_uv)]
     img += rng.normal(0.0, 6.0, img.shape)
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
+
+
+def write_eye_dataset(root, n_train, n_val, height=EYE_H, width=EYE_W, seed=0):
+    """An OpenEDS-style dataset of synthetic eyes under ``root``:
+    ``{train,validation}/images/eNNN.png`` and ``labels/eNNN.npy``, each eye
+    at a gaze uv drawn in [0.3, 0.7]^2 from ``default_rng(seed)``."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("validation", n_val)):
+        for sub in ("images", "labels"):
+            os.makedirs(os.path.join(root, split, sub), exist_ok=True)
+        for i in range(n):
+            uv = tuple(rng.uniform(0.3, 0.7, 2))
+            eye_seed = int(rng.integers(1 << 31))
+            Image.fromarray(make_eye(eye_seed, height, width, uv)).save(
+                os.path.join(root, split, "images", f"e{i:03d}.png"))
+            np.save(os.path.join(root, split, "labels", f"e{i:03d}.npy"),
+                    eye_label(height, width, uv))
 
 
 def cuda_ms(fn, reps=REPS, warmup=1, batch=1):
@@ -1183,6 +1229,237 @@ def entry_phase(tmp, gaze_uv):
     return out
 
 
+RITNET_SPLITS = (16, 8)  # synthetic OpenEDS-style eyes: training, validation
+RITNET_ARGS = ["--bs", "8", "--epochs", "2", "--lr", "1e-3", "--seed", "0"]
+RITNET_FIT_STEPS = 30  # on one fixed batch of 8, as JAX's test_loss_decreases
+RITNET_STEP_LOSS_RTOL = 1e-4  # card vs CPU, one step at 640x400
+# the card's float32 gradient against a float64 run of the same step on the
+# card, of each tensor's largest gradient. (The CPU's float32 is no yardstick
+# here: its 512k-term bias sums read 1.04e-3 off float64 at out_conv1.bias.)
+RITNET_GRAD_TOL = 1e-4
+# Adam's first step is lr * g / (|g| + 1e-8), a sign step: held within 1 % of
+# lr where the gradient is clear of rounding (|g| >= 1e-6 on the CPU and the
+# card within 1 % of it); at most 1 % of the elements may fall outside that set
+RITNET_UPDATE_TOL = 0.01
+
+
+def ritnet_phase(tmp, model, eye):
+    """Phase 16 (checks): RITnet training and evaluation at full width on a
+    synthetic OpenEDS-style dataset written under ``tmp``: ``train_ritnet``
+    for 2 epochs, one train step on the card against the CPU, a 30-step
+    fit, ``eval_ritnet`` with the trained weights and with the vendored
+    ones. ``model`` is phase 7's RITnet on the card (its device is the
+    phase's), ``eye`` its synthetic eye. Returns the numbers and what the
+    timings need."""
+    import contextlib
+    import io
+
+    from PIL import Image
+
+    from gaussian_splatting_with_eye_tracking_tpu_torch import eval_ritnet, track_render
+    from gaussian_splatting_with_eye_tracking_tpu_torch import train_ritnet
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet, ritnet_data
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet_train
+
+    dev = next(model.parameters()).device
+    root = os.path.join(tmp, "eyes")
+    t0 = time.perf_counter()
+    write_eye_dataset(root, *RITNET_SPLITS, seed=1)
+    out = {"dataset_s": time.perf_counter() - t0}
+
+    # train through the CLI, in tmp (it writes logs/<expname>/ under the cwd)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        t0 = time.perf_counter()
+        (params, tlog), launches = counted(train_ritnet.main, [
+            "--dataset", root, "--expname", "smoke", "--data_device", dev.type, *RITNET_ARGS])
+        out["train_s"] = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    losses = [x for epoch in tlog["losses"] for x in epoch]
+    n_params = sum(v.numel() for v in params.values())
+    min_var = min(float(v.min()) for k, v in params.items() if k.endswith("running_var"))
+    out.update(losses=losses, val_miou=tlog["val_miou"], epoch_s=tlog["seconds"],
+               params=n_params, min_running_var=min_var, launches=launches)
+    log(f"RITnet training CLI: {n_params} parameters, losses {losses}, val mIoU "
+        f"{tlog['val_miou']}, epochs {tlog['seconds']} s, least running_var {min_var}; "
+        f"launches {launches}")
+    if n_params != 249_220 or len(losses) != 2 * (RITNET_SPLITS[0] // 8):
+        raise AssertionError(f"RITnet training: {n_params} parameters, {len(losses)} steps")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"RITnet training: a loss is not finite: {losses}")
+    if not all(bool(torch.isfinite(v).all()) for v in params.values()):
+        raise AssertionError("RITnet training: a parameter or BatchNorm statistic is not finite")
+    if not min_var > -ritnet.BN_EPS:
+        raise AssertionError(f"RITnet training: running_var {min_var} (the square root fails)")
+    need_launches("RITnet training", launches, {}, none_of=list(launches))
+    logs = os.path.join(tmp, "logs", "smoke")
+    saved = {k: train_ritnet.load_params_npz(os.path.join(logs, f"{k}_model.npz"), dev)
+             for k in ("last", "best")}
+    if not all(torch.equal(saved["last"][k], v) for k, v in params.items()):
+        raise AssertionError("RITnet training: last_model.npz does not load back bit for bit")
+    if tlog["val_miou"][-1] >= max(tlog["val_miou"]) and not all(
+            torch.equal(saved["best"][k], v) for k, v in params.items()):
+        raise AssertionError("RITnet training: best_model.npz is not the last epoch's model")
+
+    # one make_train_step step on the card and on the CPU, same params, same batch
+    init = {k: v.numpy() for k, v in ritnet.init_params(torch.Generator().manual_seed(0)).items()}
+    batch = next(ritnet_data.batches(root, "train", 2, np.random.default_rng(0)))
+    tx, step = ritnet_train.make_train_step(1e-3)
+    card_cpu = {}
+    for d in (dev, torch.device("cpu")):
+        p = {k: torch.from_numpy(v).to(d) for k, v in init.items()}
+        b = train_ritnet.to_device(batch, d)
+        new, _, loss = step(p, tx.init(p), b, 1.0)
+        _, grads = ritnet_train.loss_and_grads(p, b, 1.0)
+        card_cpu[d.type] = (float(loss), {k: (new[k] - p[k]).cpu() for k in p},
+                            {k: g.cpu() for k, g in grads.items()})
+    (loss_d, upd_d, grad_d), (loss_c, upd_c, grad_c) = card_cpu[dev.type], card_cpu["cpu"]
+    b64 = [x.double() if x.is_floating_point() else x for x in train_ritnet.to_device(batch, dev)]
+    _, grad64 = ritnet_train.loss_and_grads(
+        {k: torch.from_numpy(v).to(dev, torch.float64) for k, v in init.items()}, b64, 1.0)
+    grad64 = {k: g.cpu() for k, g in grad64.items()}
+
+    def off_f64(grads):  # (largest error as a share of its tensor's largest, that tensor)
+        return max((float((grads[k].double() - g).abs().max() / g.abs().max()), k)
+                   for k, g in grad64.items())
+
+    loss_rel = abs(loss_d - loss_c) / abs(loss_c)
+    (grad_err, grad_at), (cpu_err, cpu_at) = off_f64(grad_d), off_f64(grad_c)
+    upd_err = max(float((upd_d[k] - u).abs().max()) for k, u in upd_c.items()) / 1e-3
+    clear = {k: (g.abs() >= 1e-6) & ((grad_d[k] - g).abs() <= 0.01 * g.abs())
+             for k, g in grad_c.items()}
+    upd_clear = max(float((upd_d[k] - u).abs().where(clear[k], 0.0).max())
+                    for k, u in upd_c.items()) / 1e-3
+    n_unclear = sum(int((~m).sum()) for m in clear.values())
+    out["step_card_vs_cpu"] = {"loss": [loss_d, loss_c], "loss_rel": loss_rel,
+                               "grad_err_vs_f64": [grad_err, grad_at],
+                               "cpu_grad_err_vs_f64": [cpu_err, cpu_at], "update_err_lr": upd_err,
+                               "update_err_lr_clear": upd_clear, "unclear_elements": n_unclear}
+    log(f"RITnet step {dev.type} vs CPU at {tuple(batch[0].shape)}: loss {loss_d} vs {loss_c} "
+        f"(rel {loss_rel:.3g}); float32 gradients vs float64 on the card, of each tensor's "
+        f"largest: card {grad_err:.3g} ({grad_at}), CPU {cpu_err:.3g} ({cpu_at}); "
+        f"updates within {upd_err:.3g} lr ({upd_clear:.3g} lr where the gradient is clear of "
+        f"rounding; {n_unclear} of {n_params} elements are not)")
+    if not (loss_rel <= RITNET_STEP_LOSS_RTOL and grad_err <= RITNET_GRAD_TOL
+            and upd_clear <= RITNET_UPDATE_TOL and n_unclear <= 0.01 * n_params):
+        raise AssertionError(f"RITnet step: card and CPU disagree: {out['step_card_vs_cpu']}")
+
+    # 30 steps on one fixed batch of 8
+    fixed = train_ritnet.to_device(
+        next(ritnet_data.batches(root, "train", 8, np.random.default_rng(2))), dev)
+    p = {k: torch.from_numpy(v).to(dev) for k, v in init.items()}
+    state, fit = tx.init(p), []
+    for _ in range(RITNET_FIT_STEPS):
+        p, state, loss = step(p, state, fixed, 1.0)
+        fit.append(float(loss))
+    out["fit_losses"] = fit
+    log(f"RITnet fit, {RITNET_FIT_STEPS} steps on one batch of 8: loss {fit[0]} -> {fit[-1]}")
+    if not (np.isfinite(fit).all() and fit[-1] < fit[0]):
+        raise AssertionError(f"RITnet fit: losses {fit}")
+
+    # eval_ritnet with the trained weights and the labels
+    val = os.path.join(root, "validation")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        eval_ritnet.main(["--images", os.path.join(val, "images"), "--labels",
+                          os.path.join(val, "labels"), "--weights",
+                          os.path.join(logs, "best_model.npz"), "--out_dir",
+                          os.path.join(tmp, "eval"), "--data_device", dev.type])
+    lines = buf.getvalue().splitlines()
+    written = sorted(os.listdir(os.path.join(tmp, "eval")))
+    out["eval_lines"] = lines
+    log(f"eval_ritnet: {lines}; {len(written)} files written")
+    names = [f"e{i:03d}" for i in range(RITNET_SPLITS[1])]
+    if not (lines and lines[0].startswith(f"mIoU over {RITNET_SPLITS[1]} images: ")):
+        raise AssertionError(f"eval_ritnet printed {lines}")
+    if written != sorted(f"{n}_{k}" for n in names for k in ("label.npy", "mask.png")):
+        raise AssertionError(f"eval_ritnet wrote {written}")
+
+    # eval_ritnet with the vendored weights against estimate_gaze on phase 7's eye
+    eye_dir = os.path.join(tmp, "eye")
+    os.makedirs(eye_dir)
+    Image.fromarray(eye).save(os.path.join(eye_dir, "eye.png"))
+    with contextlib.redirect_stdout(io.StringIO()):
+        eval_ritnet.main(["--images", eye_dir, "--out_dir", os.path.join(tmp, "eye_eval"),
+                          "--data_device", dev.type])
+    label = np.load(os.path.join(tmp, "eye_eval", "eye_label.npy"))
+    _, pred = track_render.estimate_gaze(eye, model, device=dev)
+    differ = int((label != pred.cpu().numpy()).sum())
+    log(f"eval_ritnet vendored weights vs estimate_gaze on the {eye.shape} eye: {differ} "
+        "pixels differ")
+    if label.shape != tuple(pred.shape) or differ:
+        raise AssertionError(f"eval_ritnet's class map differs from estimate_gaze's on {differ} px")
+    out["eval_vs_estimate_gaze_px"] = differ
+    return out, {"root": root, "init": init, "fixed": fixed, "best": os.path.join(
+        logs, "best_model.npz")}
+
+
+def ritnet_timings(run):
+    """Phase 16 (timings): the train step alone on a batch of 8 at 640x400
+    (CUDA events, warm-up then the median of 10) and its peak memory, the
+    host's time per ``ritnet_data.batches`` batch split into its parts, and
+    the eval forward per image."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet, ritnet_data
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet_train
+
+    dev = torch.device("cuda")
+    tx, step = ritnet_train.make_train_step(1e-3)
+    p = {k: torch.from_numpy(v).to(dev) for k, v in run["init"].items()}
+    state = tx.init(p)
+    step_ms = cuda_ms(lambda: step(p, state, run["fixed"], 1.0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**20
+    step(p, state, run["fixed"], 1.0)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    imgs, labels = run["fixed"][:2]
+    # flops of the forward, from the convolutions' shapes: 2 per multiply-add
+    flops = 0
+    for k, w in p.items():
+        if k.endswith(".weight") and w.dim() == 4:
+            level = int(k[len("down_block")]) - 1 if k.startswith("down_block") else (
+                4 - int(k[len("up_block")]) if k.startswith("up_block") else 0)
+            flops += 2 * w.numel() * imgs.shape[0] * imgs.shape[2] * imgs.shape[3] // 4**level
+    step_bound_ms = 3 * flops / FP32_FLOPS_PER_S * 1e3
+
+    # the host's batch of 8, part by part (one draw of ritnet_data.batches' order)
+    root, split = run["root"], "train"
+    names = ritnet_data.list_split(root, split)[:8]
+    rng = np.random.default_rng(3)
+    parts = {"load_augment": 0.0, "preprocess": 0.0, "weight_map": 0.0, "distance_maps": 0.0}
+    for name in names:
+        t0 = time.perf_counter()
+        img, label = ritnet_data.augment(*ritnet_data.load_example(root, split, name), rng)
+        t1 = time.perf_counter()
+        ritnet.normalise_eye_image(img)
+        t2 = time.perf_counter()
+        ritnet_train.boundary_weight_map(label)
+        t3 = time.perf_counter()
+        ritnet_train.distance_maps(label)
+        t4 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[key] += dt * 1e3
+    t0 = time.perf_counter()
+    next(ritnet_data.batches(root, split, 8, np.random.default_rng(3)))
+    batch_ms = (time.perf_counter() - t0) * 1e3
+
+    model = ritnet.load_pretrained(run["best"], device=dev)
+    x = imgs[:1]
+    with torch.no_grad():
+        eval_ms = cuda_ms(lambda: model(x))
+    out = {"step_ms": step_ms, "step_flops": 3 * flops, "step_bound_ms": step_bound_ms,
+           "step_peak_mib": peak, "held_mib": held, "host_batch_ms": batch_ms,
+           "host_batch_parts_ms": parts, "eval_forward_ms": eval_ms}
+    log(f"RITnet step at {tuple(imgs.shape)}: {step_ms:.3f} ms (fp32 bound {step_bound_ms:.3f} "
+        f"ms for {3 * flops:.3e} flop), peak {peak:.0f} MiB ({held:.0f} held before); host "
+        f"batch of 8 {batch_ms:.1f} ms, parts {json.dumps(parts)}; eval forward "
+        f"{eval_ms:.3f} ms per image; labels {tuple(labels.shape)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1467,6 +1744,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_phase(tmp)
         entries = entry_phase(tmp, gaze_uv)
+        # -- 16. RITnet training and evaluation ----------------------------
+        t0 = time.perf_counter()
+        rit, rit_run = ritnet_phase(tmp, model, eye)
+        rit.update(ritnet_timings(rit_run))
+        rit["seconds"] = time.perf_counter() - t0
 
     src = "gaussian_splatting_with_eye_tracking_tpu_torch/csrc/{}.cu"
     kernels = [
@@ -1500,6 +1782,7 @@ def main() -> int:
     log(json.dumps({"foveated": fov, "eye": eye_info, "card": smi}))
     log(json.dumps({"cli": cli, "card": smi}))
     log(json.dumps({"entry_points": entries, "card": smi}))
+    log(json.dumps({"ritnet": rit, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""RITnet eye segmentation (DenseNet2D), inference only.
+"""RITnet eye segmentation (DenseNet2D): inference and the training form.
 
 Port of ``gaussian_splatting_with_eye_tracking_tpu/models/ritnet.py``: the
 DenseUNet of 5 down blocks (2x2 average pooling, dense 3x3/1x1
@@ -8,16 +8,29 @@ sclera, iris, pupil), 249,220 parameters; the preprocessing (gamma 0.8
 table, CLAHE 1.5 on an 8x8 grid, normalisation to [-1, 1]) and the pupil
 centroid that serves as the gaze estimate.
 
-Submodule names are the checkpoint's keys (``down_block1.conv1``, ...,
-``out_conv1``), so the vendored weights load as a state dict. The weights
-file ``weights/ritnet_best.npz`` is this package's own copy of the JAX
-package's vendored conversion of the reference checkpoint. BatchNorm runs
-in eval mode (running statistics, eps 1e-5). The convolutions run in true
-float32: ``backend`` turns cuDNN's TF32 off for the process.
+One forward, ``densenet2d_apply``, runs over a dict of checkpoint-named
+tensors (``down_block1.conv1.weight``, ..., ``out_conv1.bias``) with one of
+two BatchNorms:
+
+- ``batch_norm_affine``, JAX's ``_bn``: the running statistics folded into
+  an affine map, x * g / sqrt(var + 1e-5) + (b - mean * g / sqrt(var +
+  1e-5)). It never uses batch statistics, and all four tensors are
+  differentiable: the training form (``models/ritnet_train.py``), as in
+  JAX, trains ``running_mean`` and ``running_var`` with Adam.
+- ``batch_norm_eval``, ``nn.BatchNorm2d``'s eval-mode arithmetic: the
+  ``DenseNet2D`` module, the inference path (``load_pretrained``,
+  ``track_render.estimate_gaze``).
+
+Submodule names are the checkpoint's keys, so the vendored weights load as
+a state dict. The weights file ``weights/ritnet_best.npz`` is this
+package's own copy of the JAX package's vendored conversion of the
+reference checkpoint. The convolutions run in true float32: ``backend``
+turns cuDNN's TF32 off for the process.
 """
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 from typing import Mapping
 
@@ -32,82 +45,168 @@ LEAK = 0.01  # torch LeakyReLU default
 CHANNELS = 32
 NUM_CLASSES = 4
 PUPIL = 3
+BN_EPS = 1e-5
 
 VENDORED_WEIGHTS = Path(__file__).resolve().parent / "weights" / "ritnet_best.npz"
 
 
-def _conv(cin: int, cout: int, k: int) -> nn.Conv2d:
+def _conv(x, p, name):
+    w = p[f"{name}.weight"]
+    return F.conv2d(x, w, p[f"{name}.bias"], padding=w.shape[-1] // 2)
+
+
+def _lrelu(x):
+    return F.leaky_relu(x, LEAK)
+
+
+def batch_norm_affine(x, p, prefix):
+    """JAX's ``_bn``: the running statistics as an affine map,
+    differentiable in all four tensors."""
+    inv = p[f"{prefix}.weight"] / torch.sqrt(p[f"{prefix}.running_var"] + BN_EPS)
+    shift = p[f"{prefix}.bias"] - p[f"{prefix}.running_mean"] * inv
+    return x * inv[None, :, None, None] + shift[None, :, None, None]
+
+
+def batch_norm_eval(x, p, prefix):
+    """``nn.BatchNorm2d`` in eval mode (running statistics, eps 1e-5)."""
+    return F.batch_norm(x, p[f"{prefix}.running_mean"], p[f"{prefix}.running_var"],
+                        p[f"{prefix}.weight"], p[f"{prefix}.bias"], False, 0.0, BN_EPS)
+
+
+def _down_block(x, p, name, pool, bn):
+    if pool:
+        x = F.avg_pool2d(x, 2)
+    x1 = _lrelu(_conv(x, p, f"{name}.conv1"))
+    x21 = torch.cat([x, x1], 1)
+    x22 = _lrelu(_conv(_conv(x21, p, f"{name}.conv21"), p, f"{name}.conv22"))
+    x31 = torch.cat([x21, x22], 1)
+    out = _lrelu(_conv(_conv(x31, p, f"{name}.conv31"), p, f"{name}.conv32"))
+    return bn(out, p, f"{name}.bn")
+
+
+def _up_block(skip, x, p, name):
+    x = torch.cat([F.interpolate(x, scale_factor=2, mode="nearest"), skip], 1)
+    x1 = _lrelu(_conv(_conv(x, p, f"{name}.conv11"), p, f"{name}.conv12"))
+    x21 = torch.cat([x, x1], 1)
+    return _lrelu(_conv(_conv(x21, p, f"{name}.conv21"), p, f"{name}.conv22"))
+
+
+def densenet2d_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor,
+                     bn=batch_norm_affine) -> torch.Tensor:
+    """(N, 1, H, W) normalised grayscale, H and W divisible by 16 -> (N, 4,
+    H, W) class logits, over checkpoint-named tensors. Port of
+    ``densenet2d_apply``; ``bn`` is JAX's affine BatchNorm by default."""
+    x1 = _down_block(x, params, "down_block1", False, bn)
+    x2 = _down_block(x1, params, "down_block2", True, bn)
+    x3 = _down_block(x2, params, "down_block3", True, bn)
+    x4 = _down_block(x3, params, "down_block4", True, bn)
+    x5 = _down_block(x4, params, "down_block5", True, bn)
+    x6 = _up_block(x4, x5, params, "up_block1")
+    x7 = _up_block(x3, x6, params, "up_block2")
+    x8 = _up_block(x2, x7, params, "up_block3")
+    x9 = _up_block(x1, x8, params, "up_block4")
+    return _conv(x9, params, "out_conv1")
+
+
+def _conv_module(cin: int, cout: int, k: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, padding=k // 2)
 
 
 class DownBlock(nn.Module):
-    def __init__(self, cin: int, c: int, pool: bool):
-        super().__init__()
-        self.pool = pool
-        self.conv1 = _conv(cin, c, 3)
-        self.conv21 = _conv(cin + c, c, 1)
-        self.conv22 = _conv(c, c, 3)
-        self.conv31 = _conv(cin + 2 * c, c, 1)
-        self.conv32 = _conv(c, c, 3)
-        self.bn = nn.BatchNorm2d(c, eps=1e-5)
+    """A down block's checkpoint-named parameters (its forward is
+    ``_down_block``)."""
 
-    def forward(self, x):
-        if self.pool:
-            x = F.avg_pool2d(x, 2)
-        x1 = F.leaky_relu(self.conv1(x), LEAK)
-        x21 = torch.cat([x, x1], 1)
-        x22 = F.leaky_relu(self.conv22(self.conv21(x21)), LEAK)
-        x31 = torch.cat([x21, x22], 1)
-        return self.bn(F.leaky_relu(self.conv32(self.conv31(x31)), LEAK))
+    def __init__(self, cin: int, c: int):
+        super().__init__()
+        self.conv1 = _conv_module(cin, c, 3)
+        self.conv21 = _conv_module(cin + c, c, 1)
+        self.conv22 = _conv_module(c, c, 3)
+        self.conv31 = _conv_module(cin + 2 * c, c, 1)
+        self.conv32 = _conv_module(c, c, 3)
+        self.bn = nn.BatchNorm2d(c, eps=BN_EPS)
 
 
 class UpBlock(nn.Module):
+    """An up block's checkpoint-named parameters (its forward is
+    ``_up_block``)."""
+
     def __init__(self, c: int):
         super().__init__()
-        self.conv11 = _conv(2 * c, c, 1)
-        self.conv12 = _conv(c, c, 3)
-        self.conv21 = _conv(3 * c, c, 1)
-        self.conv22 = _conv(c, c, 3)
-
-    def forward(self, skip, x):
-        x = torch.cat([F.interpolate(x, scale_factor=2, mode="nearest"), skip], 1)
-        x1 = F.leaky_relu(self.conv12(self.conv11(x)), LEAK)
-        x21 = torch.cat([x, x1], 1)
-        return F.leaky_relu(self.conv22(self.conv21(x21)), LEAK)
+        self.conv11 = _conv_module(2 * c, c, 1)
+        self.conv12 = _conv_module(c, c, 3)
+        self.conv21 = _conv_module(3 * c, c, 1)
+        self.conv22 = _conv_module(c, c, 3)
 
 
 class DenseNet2D(nn.Module):
     """(N, 1, H, W) normalised grayscale, H and W divisible by 16 ->
-    (N, 4, H, W) class logits. Port of ``densenet2d_apply``."""
+    (N, 4, H, W) class logits: ``densenet2d_apply`` over the module's
+    tensors with ``nn.BatchNorm2d``'s eval-mode arithmetic. The inference
+    path; it never uses batch statistics, whatever its mode."""
 
     def __init__(self, channels: int = CHANNELS, in_channels: int = 1,
                  out_channels: int = NUM_CLASSES):
         super().__init__()
         c = channels
-        self.down_block1 = DownBlock(in_channels, c, pool=False)
+        self.down_block1 = DownBlock(in_channels, c)
         for i in range(2, 6):
-            setattr(self, f"down_block{i}", DownBlock(c, c, pool=True))
+            setattr(self, f"down_block{i}", DownBlock(c, c))
         for i in range(1, 5):
             setattr(self, f"up_block{i}", UpBlock(c))
-        self.out_conv1 = _conv(c, out_channels, 1)
+        self.out_conv1 = _conv_module(c, out_channels, 1)
         self.eval()
 
     def forward(self, x):
-        x1 = self.down_block1(x)
-        x2 = self.down_block2(x1)
-        x3 = self.down_block3(x2)
-        x4 = self.down_block4(x3)
-        x5 = self.down_block5(x4)
-        x6 = self.up_block1(x4, x5)
-        x7 = self.up_block2(x3, x6)
-        x8 = self.up_block3(x2, x7)
-        x9 = self.up_block4(x1, x8)
-        return self.out_conv1(x9)
+        tensors = {**dict(self.named_parameters()), **dict(self.named_buffers())}
+        return densenet2d_apply(tensors, x, bn=batch_norm_eval)
 
 
 def get_predictions(logits: torch.Tensor) -> torch.Tensor:
     """Class map: argmax over the class axis."""
     return torch.argmax(logits, dim=1)
+
+
+def init_params(generator: torch.Generator, channels: int = CHANNELS, in_channels: int = 1,
+                out_channels: int = NUM_CLASSES) -> dict:
+    """Random parameters in JAX's ``init_params`` names, shapes, order and
+    scheme (the reference's): He-normal convolutions in fan-out mode, std
+    sqrt(2 / (k * k * cout)), zero biases, BatchNorm (mean 0, var 1, weight
+    1, bias 0). float32 CPU tensors drawn from ``generator``."""
+    params = {}
+    c = channels
+
+    def conv(name, cin, cout, k):
+        w = torch.randn((cout, cin, k, k), generator=generator, dtype=torch.float32)
+        params[f"{name}.weight"] = w * math.sqrt(2.0 / (k * k * cout))
+        params[f"{name}.bias"] = torch.zeros(cout)
+
+    def bn(name, cout):
+        params[f"{name}.running_mean"] = torch.zeros(cout)
+        params[f"{name}.running_var"] = torch.ones(cout)
+        params[f"{name}.weight"] = torch.ones(cout)
+        params[f"{name}.bias"] = torch.zeros(cout)
+
+    def down(name, cin):
+        conv(f"{name}.conv1", cin, c, 3)
+        conv(f"{name}.conv21", cin + c, c, 1)
+        conv(f"{name}.conv22", c, c, 3)
+        conv(f"{name}.conv31", cin + 2 * c, c, 1)
+        conv(f"{name}.conv32", c, c, 3)
+        bn(f"{name}.bn", c)
+
+    def up(name):
+        conv(f"{name}.conv11", 2 * c, c, 1)
+        conv(f"{name}.conv12", c, c, 3)
+        conv(f"{name}.conv21", 3 * c, c, 1)
+        conv(f"{name}.conv22", c, c, 3)
+
+    down("down_block1", in_channels)
+    for i in range(2, 6):
+        down(f"down_block{i}", c)
+    for i in range(1, 5):
+        up(f"up_block{i}")
+    conv("out_conv1", c, out_channels, 1)
+    return params
 
 
 def params_from_jax(params: Mapping[str, np.ndarray]) -> dict:
@@ -121,15 +220,32 @@ def params_from_jax(params: Mapping[str, np.ndarray]) -> dict:
     return sd
 
 
+def import_torch_state_dict(path) -> dict:
+    """A torch checkpoint of a state dict (the reference's
+    ``best_model.pkl``, possibly saved from ``nn.DataParallel``) -> float32
+    numpy arrays by checkpoint name: ``module.`` stripped, the batch
+    counters dropped. Read with ``weights_only=True``: tensors and plain
+    containers only, no pickled module."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return {k.removeprefix("module."): np.asarray(v.detach().cpu().numpy(), np.float32)
+            for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+
+
 def load_pretrained(path=None, device=None) -> DenseNet2D:
-    """``DenseNet2D`` with weights from an ``.npz`` of checkpoint-named
-    arrays (the vendored ``weights/ritnet_best.npz`` by default), in eval
-    mode on ``device``: CUDA unless the caller asks for another."""
+    """``DenseNet2D`` in eval mode on ``device`` (CUDA unless the caller
+    asks for another) with the weights of an ``.npz`` of checkpoint-named
+    arrays (the vendored ``weights/ritnet_best.npz`` when ``path`` is None)
+    or, for any other file, of a torch state dict
+    (``import_torch_state_dict``)."""
     dev = backend.resolve_device(device)
-    with np.load(VENDORED_WEIGHTS if path is None else path) as z:
-        sd = params_from_jax({k: z[k] for k in z.files})
+    path = VENDORED_WEIGHTS if path is None else Path(path)
+    if path.suffix == ".npz":
+        with np.load(path) as z:
+            params = {k: z[k] for k in z.files}
+    else:
+        params = import_torch_state_dict(path)
     model = DenseNet2D()
-    model.load_state_dict(sd)
+    model.load_state_dict(params_from_jax(params))
     return model.to(dev).eval()
 
 
@@ -182,15 +298,20 @@ def clahe(img_u8: np.ndarray, clip_limit: float = 1.5, grid=(8, 8)) -> np.ndarra
     return out[:h, :w].astype(np.uint8)
 
 
+def normalise_eye_image(img_u8_gray: np.ndarray) -> np.ndarray:
+    """uint8 grayscale (H, W) -> the float32 (H, W) model input in [-1, 1],
+    on the host: gamma 0.8 table, CLAHE, normalisation."""
+    x = gamma_lut(img_u8_gray, 0.8)
+    x = clahe(x, 1.5, (8, 8))
+    x = x.astype(np.float32) / 255.0
+    return (x - 0.5) / 0.5
+
+
 def preprocess_eye_image(img_u8_gray: np.ndarray, device=None) -> torch.Tensor:
     """uint8 grayscale (H, W) -> the normalised (1, 1, H, W) float32 model
     input on ``device``: CUDA unless the caller asks for another."""
     dev = backend.resolve_device(device)
-    x = gamma_lut(img_u8_gray, 0.8)
-    x = clahe(x, 1.5, (8, 8))
-    x = x.astype(np.float32) / 255.0
-    x = (x - 0.5) / 0.5
-    return torch.from_numpy(x)[None, None].to(dev)
+    return torch.from_numpy(normalise_eye_image(img_u8_gray))[None, None].to(dev)
 
 
 def pupil_centroid(pred) -> np.ndarray:

@@ -23,10 +23,27 @@ the CPU (``--data_device cpu``), at test scale.
 - LPIPS's arithmetic with seeded random weights within 1e-5 of JAX's.
 - track_render's main on the 30-step model: the gaze within 1 px of
   JAX's, each 5-step foveated render within 1/255 + 1e-3 of JAX's.
+- RITnet: both ``train_ritnet`` mains for one epoch from one JAX-written
+  init ``.npz`` with the same seed on a small synthetic OpenEDS-style
+  folder (the same batches): the printed loss within rtol 1e-5 (measured
+  5e-7), the validation mIoU within 2e-3 (measured 1e-4: the untrained
+  model's logits reach thousands, where JAX's float32 gradients depart
+  from float64 by 1.4e-4 of their largest value and a few near-zero ones
+  turn Adam's sign step, ``tests/test_torch_ritnet_train.py``); each
+  package's ``.npz`` loads in the other. ``eval_ritnet`` with the vendored
+  weights: label maps equal on all but 0.1 % of pixels (measured 0), the
+  same mIoU line; a ``module.``-prefixed torch ``.pkl`` loads into both
+  packages as the same arrays.
+- ``full_eval``: the commands equal JAX's one for one with the port's
+  module paths, and each parses under the port's own CLI.
+- ``convert``: the missing-colmap exit, and with a stand-in ``colmap`` on
+  PATH the same COLMAP calls, sparse layout and LANCZOS downscales as JAX.
 """
 
 import json
 import os
+import re
+import shlex
 import shutil
 import sys
 
@@ -38,28 +55,38 @@ import torch
 from PIL import Image
 
 import chip_smoke as cs
+import convert as jax_convert
+import eval_ritnet as jax_eval_ritnet
+import full_eval as jax_full_eval
 import render as jax_render_cli
 import track_render as jax_track_render
 import train as jax_train_cli
+import train_ritnet as jax_train_ritnet
 from gaussian_splatting_with_eye_tracking_tpu import metrics_lib as jmetrics
 from gaussian_splatting_with_eye_tracking_tpu.config import ModelConfig as JModelConfig
 from gaussian_splatting_with_eye_tracking_tpu.config import OptimizationConfig as JOpt
 from gaussian_splatting_with_eye_tracking_tpu.config import PipelineConfig as JPipe
 from gaussian_splatting_with_eye_tracking_tpu.models import gaussian_model as jgm
 from gaussian_splatting_with_eye_tracking_tpu.models import ply_io as jply
+from gaussian_splatting_with_eye_tracking_tpu.models import ritnet as jrit
 from gaussian_splatting_with_eye_tracking_tpu.ops import amr as jamr
 from gaussian_splatting_with_eye_tracking_tpu.ops.projection import CameraParams as JCameraParams
 from gaussian_splatting_with_eye_tracking_tpu_torch import (
+    convert,
+    eval_ritnet,
+    full_eval,
     metrics,
     metrics_lib,
     render,
     track_render,
     train,
+    train_ritnet,
 )
 from gaussian_splatting_with_eye_tracking_tpu_torch.config import ModelConfig, OptimizationConfig
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import checkpoint as ckpt
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as tgm
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import ply_io as tply
+from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet as trit
 from gaussian_splatting_with_eye_tracking_tpu_torch.scene import Scene
 from gaussian_splatting_with_eye_tracking_tpu_torch.scene.dataset_readers import (
     detect_and_read_scene,
@@ -404,3 +431,196 @@ def test_lpips_matches_jax(tmp_path):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
     assert metrics_lib.lpips_available(path) and not metrics_lib.lpips_available(
         str(tmp_path / "none.npz"))
+
+
+_jax_densenet = jax.jit(jrit.densenet2d_apply)  # one compile instead of one per operation
+EPOCH_LINE = re.compile(r"Epoch 0: loss=([\d.]+) val mIoU=([\d.]+) alpha=1\.00")
+
+
+def test_train_ritnet_matches_jax(tmp_path, monkeypatch, capsys):
+    data, init = str(tmp_path / "data"), str(tmp_path / "init.npz")
+    cs.write_eye_dataset(data, 4, 2, height=48, width=64)
+    jax_train_ritnet.save_params_npz(init, jax.jit(jrit.init_params)(jax.random.PRNGKey(0)))
+    argv = ["--dataset", data, "--bs", "2", "--epochs", "1", "--resume", init, "--seed", "3",
+            "--expname", "run"]
+    lines = {}
+    for name, cli, extra in (("jax", jax_train_ritnet, []),
+                             ("port", train_ritnet, ["--data_device", "cpu"])):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        out = cli.main(argv + extra)
+        lines[name] = EPOCH_LINE.search(capsys.readouterr().out)
+        assert lines[name], name
+    params, log = out
+    assert len(log["losses"][0]) == 2 and np.isfinite(log["losses"][0]).all()
+    (jloss, jmiou), (tloss, tmiou) = (map(float, lines[n].groups()) for n in ("jax", "port"))
+    np.testing.assert_allclose(tloss, jloss, rtol=1e-5)
+    assert abs(tmiou - jmiou) <= 2e-3 and tmiou > 0
+    x = np.random.default_rng(0).uniform(-1, 1, (1, 1, 48, 64)).astype(np.float32)
+    for writer in ("jax", "port"):
+        for kind in ("best", "last"):
+            path = str(tmp_path / writer / "logs" / "run" / f"{kind}_model.npz")
+            jp = jax_train_ritnet.load_params_npz(path)
+            tp = train_ritnet.load_params_npz(path, "cpu")
+            assert list(tp) == list(jp) and len(tp) == 104
+            for k in jp:
+                assert tp[k].dtype == torch.float32
+                np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]))
+            with torch.no_grad():
+                got = trit.densenet2d_apply(tp, torch.from_numpy(x)).numpy()
+            want = np.asarray(_jax_densenet(jp, jnp.asarray(x)))
+            np.testing.assert_allclose(got, want, rtol=0, atol=1e-4 * np.abs(want).max())
+    for k, v in params.items():  # the port's last model is what its main returned
+        np.testing.assert_array_equal(tp[k].numpy(), v.numpy())
+
+
+def test_eval_ritnet_matches_jax(tmp_path, capsys):
+    data = str(tmp_path / "data")
+    cs.write_eye_dataset(data, 0, 2, height=56, width=72, seed=2)  # cropped to 48x64
+    images, labels = (os.path.join(data, "validation", d) for d in ("images", "labels"))
+    out = {}
+    for name, cli, extra in (("jax", jax_eval_ritnet, []),
+                             ("port", eval_ritnet, ["--data_device", "cpu"])):
+        out[name] = str(tmp_path / name)
+        cli.main(["--images", images, "--labels", labels, "--out_dir", out[name]] + extra)
+        lines = capsys.readouterr().out.splitlines()
+        assert lines[0].startswith("mIoU over 2 images: "), lines
+        out[name + "_line"] = lines[0]
+    assert out["port_line"] == out["jax_line"]
+    assert sorted(os.listdir(out["port"])) == sorted(os.listdir(out["jax"])) == [
+        "e000_label.npy", "e000_mask.png", "e001_label.npy", "e001_mask.png"]
+    for base in ("e000", "e001"):
+        got, want = (np.load(os.path.join(out[n], base + "_label.npy")) for n in ("port", "jax"))
+        assert got.dtype == want.dtype and got.shape == want.shape == (48, 64)
+        assert (got != want).mean() <= 1e-3
+        assert np.array_equal(*(_levels(os.path.join(out[n], base + "_mask.png"))
+                                for n in ("port", "jax"))) == np.array_equal(got, want)
+
+    # the reference checkpoint's form: a DataParallel state dict
+    sd = trit.load_pretrained(device="cpu").state_dict()
+    pkl = str(tmp_path / "best_model.pkl")
+    torch.save({"module." + k: v for k, v in sd.items()}, pkl)
+    want = jrit.import_torch_state_dict(pkl)
+    got = trit.import_torch_state_dict(pkl)
+    assert list(got) == list(want) and len(got) == 104
+    for k in want:
+        np.testing.assert_array_equal(got[k], np.asarray(want[k]))
+        np.testing.assert_array_equal(got[k], sd[k].numpy())
+    eval_ritnet.main(["--images", images, "--weights", pkl, "--out_dir", str(tmp_path / "pkl"),
+                      "--data_device", "cpu"])
+    for base in ("e000", "e001"):
+        np.testing.assert_array_equal(np.load(tmp_path / "pkl" / f"{base}_label.npy"),
+                                      np.load(os.path.join(out["port"], base + "_label.npy")))
+
+
+def _commands(cli, argv, monkeypatch):
+    calls = []
+    monkeypatch.setattr(os, "system", lambda cmd: calls.append(cmd) or 0)
+    cli.main(argv)
+    monkeypatch.undo()
+    return calls
+
+
+@pytest.mark.parametrize("argv", [
+    ["-m360", "/d/m360", "-tat", "/d/tat", "-db", "/d/db", "--output_path", "/o"],
+    ["-tat", "/d/tat", "--skip_training", "--skip_metrics"]])
+def test_full_eval_commands_match_jax(argv, monkeypatch):
+    want = _commands(jax_full_eval, argv, monkeypatch)
+    got = _commands(full_eval, argv, monkeypatch)
+    assert len(got) == len(want) == (13 + 26 + 1 if len(argv) > 4 else 4)
+    pkg = "gaussian_splatting_with_eye_tracking_tpu_torch"
+    seen = {}
+    for g, w in zip(got, want):
+        py, flag, module, *rest = shlex.split(g)
+        name = module.removeprefix(pkg + ".")
+        assert (py, flag, module.startswith(pkg + ".")) == (sys.executable, "-m", True)
+        assert shlex.split(w) == [py, f"{name}.py", *rest]
+        seen[name] = seen.get(name, 0) + 1
+        parsed = {}
+        monkeypatch.setattr(train, "training", lambda *a, **k: parsed.update(cfg=a))
+        monkeypatch.setattr(render, "render_sets", lambda *a, **k: parsed.update(cfg=a))
+        monkeypatch.setattr(metrics, "evaluate", lambda *a, **k: parsed.update(cfg=a))
+        _cli({"train": train, "render": render, "metrics": metrics}[name].main, rest)
+        monkeypatch.undo()
+        assert parsed, g
+        if name == "train":
+            model, opt = parsed["cfg"][:2]
+            assert model.eval and model.data_device == "cuda"
+            scene = os.path.basename(model.model_path)
+            assert model.images == ("images_4" if scene in full_eval.mipnerf360_outdoor_scenes
+                                    else "images_2" if scene in full_eval.mipnerf360_indoor_scenes
+                                    else "images")
+        elif name == "render":
+            assert parsed["cfg"][1] in (7000, 30000) and parsed["cfg"][2]  # skip_train
+    assert seen == ({"train": 13, "render": 26, "metrics": 1} if len(argv) > 4 else
+                    {"render": 4})
+
+
+def test_full_eval_needs_a_dataset(capsys):
+    for cli in (jax_full_eval, full_eval):
+        with pytest.raises(SystemExit) as exc:
+            cli.main([])
+        assert exc.value.code == 2 and "provide at least one" in capsys.readouterr().err
+
+
+FAKE_COLMAP = """#!{python}
+import os, shutil, sys
+args = sys.argv[1:]
+with open(os.environ["FAKE_COLMAP_LOG"], "a") as f:
+    f.write(" ".join(args) + "\\n")
+opt = dict(zip(args[1::2], args[2::2]))
+if args[0] == "image_undistorter":
+    out = opt["--output_path"]
+    os.makedirs(os.path.join(out, "sparse"), exist_ok=True)
+    for name in ("cameras.bin", "images.bin", "points3D.bin"):
+        with open(os.path.join(out, "sparse", name), "w") as f:
+            f.write(name)
+    shutil.copytree(opt["--image_path"], os.path.join(out, "images"))
+"""
+
+
+def test_convert_matches_jax(tmp_path, monkeypatch, capsys):
+    empty = tmp_path / "empty_bin"
+    empty.mkdir()
+    monkeypatch.setenv("PATH", str(empty))
+    for cli in (jax_convert, convert):
+        with pytest.raises(SystemExit) as exc:
+            cli.main(["-s", str(tmp_path / "nowhere")])
+        assert exc.value.code == 1 and "`colmap` not found" in capsys.readouterr().out
+
+    bindir = tmp_path / "bin"
+    bindir.mkdir()
+    (bindir / "colmap").write_text(FAKE_COLMAP.format(python=sys.executable))
+    (bindir / "colmap").chmod(0o755)
+    monkeypatch.setenv("PATH", str(bindir))
+    rng = np.random.default_rng(0)
+    src = {}
+    for name, cli in (("jax", jax_convert), ("port", convert)):
+        src[name] = tmp_path / name
+        (src[name] / "input").mkdir(parents=True)
+        for i, (w, h) in enumerate([(64, 48), (50, 37)]):
+            Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(
+                src[name] / "input" / f"im{i}.png")
+        rng = np.random.default_rng(0)  # the same images for both
+        monkeypatch.setenv("FAKE_COLMAP_LOG", str(tmp_path / f"{name}.log"))
+        cli.main(["-s", str(src[name]), "--resize"])
+        assert capsys.readouterr().out.rstrip().endswith("Done.")
+    logs = {n: (tmp_path / f"{n}.log").read_text().replace(str(src[n]), "SRC") for n in src}
+    assert logs["port"] == logs["jax"] and len(logs["jax"].splitlines()) == 4
+    assert sorted(os.listdir(src["port"] / "sparse" / "0")) == [
+        "cameras.bin", "images.bin", "points3D.bin"]
+    for sub in ("images", "images_2", "images_4", "images_8"):
+        files = sorted(os.listdir(src["jax"] / sub))
+        assert sorted(os.listdir(src["port"] / sub)) == files == ["im0.png", "im1.png"]
+        for f in files:
+            assert np.array_equal(_levels(src["port"] / sub / f), _levels(src["jax"] / sub / f))
+    assert Image.open(src["port"] / "images_8" / "im1.png").size == (50 // 8, 37 // 8)
+
+
+def test_ritnet_clis_need_a_card_unless_told(no_cuda, tmp_path):
+    for call in (lambda: train_ritnet.main(["--dataset", str(tmp_path)]),
+                 lambda: eval_ritnet.main(["--images", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    with pytest.raises(ValueError, match="data_device 'tpu'"):
+        train_ritnet.main(["--dataset", str(tmp_path), "--data_device", "tpu"])
