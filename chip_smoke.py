@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, eye-tracked foveated serving and
-training paths, its train -> render -> metrics CLIs, its entry points and
-RITnet's training and evaluation, on one CUDA card and check them.
+training paths, its train -> render -> metrics CLIs, its entry points,
+RITnet's training and evaluation, the kernels against the oracles, the
+trained model's bench and the viewer, on one CUDA card and check them.
 
 Run from the repository root, with no arguments:
 
@@ -120,7 +121,10 @@ Phases (any failure raises and the script exits non-zero):
     2 epochs at batch 8 (every loss, parameter and BatchNorm statistic
     finite, ``running_var`` above -1e-5, both ``.npz`` files load back bit
     for bit, no hand-written kernel launched: the path is cuDNN
-    convolutions); one ``make_train_step`` step on the card and on the CPU
+    convolutions); the same ``train_ritnet`` run again in another
+    directory, its ``.npz`` parameters and logged losses bit for bit the
+    first's (cuDNN's deterministic algorithms); one ``make_train_step``
+    step on the card and on the CPU
     from the same JAX-scheme parameters on the same batch of 2 (loss within
     1e-4 relative, the card's gradients within 1e-4 of each tensor's
     largest of a float64 run on the card, updates within 1 % of a learning
@@ -132,7 +136,26 @@ Phases (any failure raises and the script exits non-zero):
     the train step alone at 8x1x400x640 with its peak memory and fp32
     bound, the host's time per batch of 8 by part, the eval forward per
     image and each epoch's wall time;
-17. print a ``{"kernels": [...]}`` line, then as the last line
+17. the parity probe, ``parity_probe.main``, the launch counters zeroed
+    before and read after: on the root parity_probe.py's inputs (256x256,
+    4,000 gaussians of SH degree 2) ``rasterize``'s kernels against its
+    ``impl="jnp"`` oracle (colour within 1e-3, counters equal, the five
+    gradients of mean(color^2) + 0.1 mean(final_t) within 2e-2 of the
+    oracle's largest), ``bin_gaussians`` against ``build_sorted_instances``
+    exactly, ``render_naive`` against ``render_tiles_jnp``, the 5-step AMR
+    frame's kernels against its oracle, the blocked 3-NN against cKDTree
+    on 50,000 points and its duplicate delta on 5,000 points taken twice;
+    K1-K4 and the round kernel launched;
+18. the trained model's 1080p bench (``train_regression.trained_bench``)
+    on the CLI phase's 1000-step model: live instances, ms of a forward +
+    backward, Mpix/s; K1-K4 on every timed step;
+19. the viewer: ``train`` resumed from the CLI phase's checkpoint for 3
+    iterations with ``--port`` on a free local port; a client asks for a
+    256x256 view with train=False, then one with train=True so training
+    goes on; both frames equal ``make_eval_render``'s image of the
+    checkpoint's state at that camera, quantised to uint8 (at most one
+    level apart on < 0.1 % of values), with their round-trip times;
+20. print a ``{"kernels": [...]}`` line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
@@ -1297,6 +1320,32 @@ def ritnet_phase(tmp, model, eye):
     logs = os.path.join(tmp, "logs", "smoke")
     saved = {k: train_ritnet.load_params_npz(os.path.join(logs, f"{k}_model.npz"), dev)
              for k in ("last", "best")}
+
+    # the same run again, in another directory: bit for bit (cuDNN's
+    # deterministic algorithms, backend.py)
+    again = os.path.join(tmp, "ritnet_again")
+    os.makedirs(again)
+    os.chdir(again)
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, tlog2 = train_ritnet.main([
+                "--dataset", root, "--expname", "smoke", "--data_device", dev.type,
+                *RITNET_ARGS])
+    finally:
+        os.chdir(cwd)
+    differ = []
+    for kind in ("last", "best"):
+        a, b = (np.load(os.path.join(d, "logs", "smoke", f"{kind}_model.npz"))
+                for d in (tmp, again))
+        differ += [f"{kind}:{k}" for k in a.files if not np.array_equal(a[k], b[k])]
+    losses2 = [x for epoch in tlog2["losses"] for x in epoch]
+    out["repeat"] = {"losses_equal": losses2 == losses, "arrays_differ": len(differ),
+                     "val_miou": tlog2["val_miou"]}
+    log(f"RITnet training again from the same data and seed: losses equal {losses2 == losses}, "
+        f"{len(differ)} saved arrays differ {differ[:5]}")
+    if differ or losses2 != losses or tlog2["val_miou"] != tlog["val_miou"]:
+        raise AssertionError(f"RITnet training does not repeat: {out['repeat']}, losses "
+                             f"{losses} then {losses2}")
     if not all(torch.equal(saved["last"][k], v) for k, v in params.items()):
         raise AssertionError("RITnet training: last_model.npz does not load back bit for bit")
     if tlog["val_miou"][-1] >= max(tlog["val_miou"]) and not all(
@@ -1457,6 +1506,147 @@ def ritnet_timings(run):
         f"ms for {3 * flops:.3e} flop), peak {peak:.0f} MiB ({held:.0f} held before); host "
         f"batch of 8 {batch_ms:.1f} ms, parts {json.dumps(parts)}; eval forward "
         f"{eval_ms:.3f} ms per image; labels {tuple(labels.shape)}")
+    return out
+
+
+PROBE_GRAD_GATE = 2e-2  # the root parity_probe.py's gate, relative to the oracle's largest
+
+
+def parity_phase():
+    """Phase 17: ``parity_probe.main`` (kernels against the jnp oracles at
+    256x256, 4,000 gaussians; the 3-NN oracle against cKDTree), its own
+    gates, and K1-K4 and the round kernel launched by it."""
+    import contextlib
+    import io
+
+    from gaussian_splatting_with_eye_tracking_tpu_torch import parity_probe
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res, launches = counted(parity_probe.main, [])
+    for line in buf.getvalue().strip().splitlines():
+        log(f"  parity probe: {line}")
+    need_launches("parity probe", launches, {"expand_seg": 1, "blend_fwd": 1, "blend_bwd": 1,
+                                             "segsum": 1, "blend_round": 4})
+    worst = max(g["rel"] for g in res["grads"].values())
+    if not (res["ok"] and worst < PROBE_GRAD_GATE):
+        raise AssertionError(f"parity probe: {res['failed']}")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    return res
+
+
+def trained_bench_phase(tmp):
+    """Phase 18: ``train_regression.trained_bench`` on the CLI phase's
+    1000-step model: its three numbers, K1-K4 launched on every timed
+    step."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import train_regression
+
+    ply = os.path.join(tmp, "model", "point_cloud", f"iteration_{CLI_ITERATIONS}",
+                       "point_cloud.ply")
+    res, launches = counted(train_regression.trained_bench, ply)
+    steps = train_regression.BENCH_REPS + 1
+    need_launches("trained bench", launches, {"expand_seg": steps, "blend_fwd": steps,
+                                              "blend_bwd": steps, "segsum": steps})
+    log(f"trained-model 1080p bench ({CLI_ITERATIONS}-step CLI model): "
+        f"{json.dumps(res)}; launches {launches}")
+    if not (res["live_instances"] > 0 and 0 < res["fwd_bwd_ms"] < math.inf):
+        raise AssertionError(f"trained bench: {res}")
+    return {**res, "launches": launches}
+
+
+VIEWER_SIZE = 256
+VIEWER_LEVEL_SHARE = 1e-3  # of the channel values allowed 1 level apart (reduction order)
+
+
+def viewer_phase(tmp):
+    """Phase 19: ``train.main`` resumed from the CLI phase's checkpoint for
+    3 iterations with the viewer on a free local port; a client asks for a
+    256x256 view with train=False, then another with train=True. Both
+    frames against ``make_eval_render``'s image of the checkpoint's state
+    at that camera, clipped and quantised to uint8."""
+    import socket
+    import struct
+    import threading
+
+    from gaussian_splatting_with_eye_tracking_tpu_torch import train as train_cli, train_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch.bench_scene import make_camera
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import checkpoint as ckpt
+    from gaussian_splatting_with_eye_tracking_tpu_torch.renderer.network_gui import image_bytes
+    from gaussian_splatting_with_eye_tracking_tpu_torch.scene.cameras import MiniCam
+    from gaussian_splatting_with_eye_tracking_tpu_torch.train_regression import run_cli
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    size, fov = VIEWER_SIZE, math.radians(60)
+    cam = make_camera(size, size, device="cpu")
+    msg = {"resolution_x": size, "resolution_y": size, "fov_y": fov, "fov_x": fov,
+           "z_near": 0.01, "z_far": 100.0, "shs_python": False, "rot_scale_python": False,
+           "keep_alive": False, "scaling_modifier": 1.0,
+           "view_matrix": cam.viewmatrix.T.reshape(-1).tolist(),
+           "view_projection_matrix": cam.projmatrix.T.reshape(-1).tolist()}
+    got = {}
+
+    def client():
+        deadline = time.time() + 60
+        while True:
+            try:
+                conn = socket.create_connection(("127.0.0.1", port), timeout=60)
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.005)
+        with conn:
+            for name, train_flag in (("paused", False), ("train", True)):
+                payload = json.dumps({**msg, "train": train_flag}).encode()
+                t0 = time.perf_counter()
+                conn.sendall(struct.pack("I", len(payload)) + payload)
+                img = b""
+                while len(img) < size * size * 3:
+                    part = conn.recv(size * size * 3 - len(img))
+                    if not part:
+                        raise ConnectionError("the viewer bridge closed the connection")
+                    img += part
+                n = struct.unpack("I", conn.recv(4))[0]
+                source = conn.recv(n).decode()
+                got[name] = (img, (time.perf_counter() - t0) * 1e3, source)
+
+    start = os.path.join(tmp, "model", f"chkpnt{CLI_ITERATIONS}.ckpt")
+    model = os.path.join(tmp, "viewer_model")
+    t = threading.Thread(target=client)
+    t.start()
+    _, launches = counted(run_cli, train_cli.main, [
+        "-s", os.path.join(tmp, "scene"), "-m", model, "--iterations", str(CLI_ITERATIONS + 3),
+        "--start_checkpoint", start, "--ip", "127.0.0.1", "--port", str(port), "--quiet"])
+    t.join(timeout=60)
+    if t.is_alive() or set(got) != {"paused", "train"}:
+        raise AssertionError(f"viewer: the client got {sorted(got)}")
+
+    state, _ = ckpt.load_checkpoint(start)
+    view = MiniCam(size, size, fov, fov, 0.01, 100.0,
+                   np.reshape(msg["view_matrix"], (4, 4)).T,
+                   np.reshape(msg["view_projection_matrix"], (4, 4)).T).params()
+    render = train_lib.make_eval_render(3, size, size)
+    want = np.frombuffer(image_bytes(render(state, *train_lib.camera_arrays(view),
+                                            torch.zeros(3, device=view.viewmatrix.device),
+                                            1.0)), np.uint8)
+    out = {"port": port, "launches": launches, "round_trip_ms": {}, "levels_off": {}}
+    for name, (img, ms, source) in got.items():
+        diff = np.abs(np.frombuffer(img, np.uint8).astype(np.int16) - want)
+        out["round_trip_ms"][name] = ms
+        out["levels_off"][name] = {"max": int(diff.max()), "share": float((diff > 0).mean())}
+        if diff.max() > 1 or (diff > 0).mean() >= VIEWER_LEVEL_SHARE or source != model:
+            raise AssertionError(f"viewer: the {name} frame differs from make_eval_render's "
+                                 f"({out['levels_off'][name]}, source {source!r})")
+    if len(set(want.tolist())) < 2:
+        raise AssertionError("viewer: make_eval_render's frame is blank")
+    need_launches("viewer training", launches, {"expand_seg": 5, "blend_fwd": 5,
+                                                "blend_bwd": 3, "segsum": 3})
+    log(f"viewer on port {port}: frames equal make_eval_render's to {out['levels_off']}; "
+        f"round trips {out['round_trip_ms']} ms (host clock, 256x256); launches {launches}")
     return out
 
 
@@ -1749,6 +1939,10 @@ def main() -> int:
         rit, rit_run = ritnet_phase(tmp, model, eye)
         rit.update(ritnet_timings(rit_run))
         rit["seconds"] = time.perf_counter() - t0
+        # -- 17-19. the parity probe, the trained bench, the viewer ----------
+        parity = parity_phase()
+        trained = trained_bench_phase(tmp)
+        viewer = viewer_phase(tmp)
 
     src = "gaussian_splatting_with_eye_tracking_tpu_torch/csrc/{}.cu"
     kernels = [
@@ -1783,6 +1977,8 @@ def main() -> int:
     log(json.dumps({"cli": cli, "card": smi}))
     log(json.dumps({"entry_points": entries, "card": smi}))
     log(json.dumps({"ritnet": rit, "card": smi}))
+    log(json.dumps({"parity_probe": parity, "trained_bench_1080p": trained, "viewer": viewer,
+                    "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -30,6 +30,11 @@ import torch
 # fp32 means fp32 on the card as well (TF32 keeps ~3 decimal digits)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# and a run repeats bit for bit: cuDNN picks only deterministic algorithms
+# (its default choices for RITnet's weight gradients sum with atomics), and
+# none by timing them first
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"

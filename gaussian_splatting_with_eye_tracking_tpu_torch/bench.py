@@ -37,19 +37,30 @@ BASELINE_PX_PER_S = 30.0 * 1920 * 1080  # the reference: 30 fps at 1080p, forwar
 def measure(num_gaussians: int = bs.N, width: int = bs.W, height: int = bs.H,
             max_instances: int = bs.MAX_INSTANCES, max_live: int = bs.MAX_LIVE,
             reps: int = bs.REPS, device=None) -> dict:
-    """Forward + backward of mean(color^2) with respect to the means on
-    bench's scene (``num_gaussians`` of it) and front camera: the loss and
-    gradient of one step, the median ms of ``reps`` timed steps, the
-    probe's instance counts, and each kernel's launches over the timed
-    steps (warm-up included; none on the CPU, where the plain versions
-    run). Raises if the capacities overflow. Runs on CUDA unless
-    ``device`` says otherwise."""
+    """``time_fwd_bwd`` on bench's scene (``num_gaussians`` of it) and
+    front camera, with the size and scene in the result. Runs on CUDA
+    unless ``device`` says otherwise."""
     dev = backend.resolve_device(device)
-    means, scales, quats, opacities, sh = (
-        torch.from_numpy(a).to(dev) for a in bs.make_scene(num_gaussians))
+    scene = [torch.from_numpy(a).to(dev) for a in bs.make_scene(num_gaussians)]
     cam = bs.view_request(0.0, 0.0, width, height).params(device=dev)
-    bg = torch.zeros(3, device=dev)
-    kw = dict(sh_degree=3, max_instances=max_instances, max_live=max_live)
+    result = time_fwd_bwd(scene, cam, torch.zeros(3, device=dev), 3, max_instances, max_live,
+                          reps)
+    result.update(width=width, height=height, num_gaussians=num_gaussians)
+    return result
+
+
+def time_fwd_bwd(scene, cam, bg, sh_degree: int, max_instances: int, max_live: int,
+                 reps: int = bs.REPS) -> dict:
+    """Forward + backward of mean(color^2) with respect to the means of
+    ``scene`` (activated means, scales, quaternions, opacities, SH, on one
+    device) seen by ``cam``: the loss and gradient of one step, the median
+    ms of ``reps`` timed steps (after a warm-up), the probe's instance
+    counts, and each kernel's launches over the timed steps (none on the
+    CPU, where the plain versions run). Raises if the capacities
+    overflow."""
+    means, scales, quats, opacities, sh = scene
+    dev = means.device
+    kw = dict(sh_degree=sh_degree, max_instances=max_instances, max_live=max_live)
     with torch.no_grad():
         probe = rast.rasterize(means, scales, quats, opacities, sh, cam, bg, **kw)
     if bool(probe.overflow):
@@ -70,8 +81,7 @@ def measure(num_gaussians: int = bs.N, width: int = bs.W, height: int = bs.H,
         kern.launches = 0
     ms = fps_test.time_ms(step, reps, dev)
     launches = {kern.name: kern.launches for kern in backend.kernels()}
-    return {"loss": loss, "grad": grad, "ms": ms, "width": width, "height": height,
-            "num_gaussians": num_gaussians, "instances": int(probe.num_instances),
+    return {"loss": loss, "grad": grad, "ms": ms, "instances": int(probe.num_instances),
             "enumerated": int(probe.num_enumerated), "launches": launches,
             "iterations": reps + 1, "timer": fps_test.timer_name(dev)}
 

@@ -1,7 +1,9 @@
 """bench.py's scene and view requests, for the port's smoke run, timing
 and profiling scripts: 300,000 gaussians of SH degree 3 drawn in numpy
 from a seed, seen at 1920x1088 by a camera at z = -5 looking down +z (and
-small yaw/pitch turns of it), with bench.py's instance capacities."""
+small yaw/pitch turns of it), with bench.py's instance capacities. Also
+the package's copies of the JAX package's test fixtures that its probes
+use (``tests/helpers.make_camera`` and ``make_random_gaussians``)."""
 
 from __future__ import annotations
 
@@ -22,7 +24,15 @@ REPS = 10  # timed runs after the warm-up; the median is reported
 def make_scene(n, seed=0, sh_degree=3, spread=2.5, depth_range=(3.0, 7.0),
                scale_range=(-4.6, -3.0)):
     """bench.py's scene (activated means, scales, quaternions, opacities,
-    SH), drawn in the order tests/helpers.py draws it."""
+    SH): ``make_random_gaussians`` with bench.py's spread and scales."""
+    return make_random_gaussians(n, seed, sh_degree, spread, depth_range, scale_range)
+
+
+def make_random_gaussians(n=500, seed=0, sh_degree=0, spread=1.5, depth_range=(3.0, 7.0),
+                          scale_range=(-3.5, -2.0)):
+    """Random gaussians in front of ``make_camera``'s viewpoint, as numpy
+    arrays (means, scales, quaternions, opacities, SH): the draws of the
+    JAX package's ``tests/helpers.make_random_gaussians``, in its order."""
     rng = np.random.default_rng(seed)
     means = np.stack([
         rng.uniform(-spread, spread, n),
@@ -55,3 +65,14 @@ def view_request(yaw_deg, pitch_deg, width=W, height=H) -> MiniCam:
     view = tf.world_to_view(R, -R.T @ center)
     full = (tf.projection_matrix(0.01, 100.0, FOV, FOV) @ view).astype(np.float32)
     return MiniCam(width, height, FOV, FOV, 0.01, 100.0, view, full)
+
+
+def make_camera(width=64, height=64, fovx=math.radians(60), fovy=None, cam_z=-5.0,
+                device=None):
+    """The camera of the JAX package's ``tests/helpers.make_camera``: at (0,
+    0, cam_z) looking down +z toward the origin. Returns ``CameraParams``
+    on ``device`` (CUDA unless told otherwise)."""
+    fovy = fovx if fovy is None else fovy
+    view = tf.world_to_view(np.eye(3), np.array([0.0, 0.0, -cam_z]))
+    full = (tf.projection_matrix(0.01, 100.0, fovx, fovy) @ view).astype(np.float32)
+    return MiniCam(width, height, fovy, fovx, 0.01, 100.0, view, full).params(device)

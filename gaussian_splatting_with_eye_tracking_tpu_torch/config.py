@@ -1,17 +1,15 @@
 """Configuration dataclasses and their command-line reflection.
 
 Port of ``gaussian_splatting_with_eye_tracking_tpu/config.py`` (the
-reference's ``ModelParams``, ``OptimizationParams`` and ``ParamGroup``),
-field for field with the same defaults, except that
+reference's ``ModelParams``, ``PipelineParams``, ``OptimizationParams``
+and ``ParamGroup``), field for field with the same defaults, except that
 ``ModelConfig.data_device`` names where the port runs: ``"cuda"`` (the
 default) or ``"cpu"``. ``get_combined_args`` overlays the command line on
 a model directory's persisted ``cfg_args``.
 
-Left out until something reads them: ``PipelineConfig`` (the
-reference's Python-side SH / covariance toggles and ``debug``; the CLIs
-reject those flags) and ``RasterizeConfig`` (the tile, chunk and cutoffs
-are constants of ``ops/blend.py``; the trainer's starting instance
-capacity is ``train.training``'s argument).
+Left out until something reads it: ``RasterizeConfig`` (the tile, chunk
+and cutoffs are constants of ``ops/blend.py``; the trainer's starting
+instance capacity is ``train.training``'s argument).
 """
 
 from __future__ import annotations
@@ -37,6 +35,19 @@ class ModelConfig:
     eval: bool = False
 
     capacity: int = 0  # 0 = auto (next power of two of the initial points * 8)
+
+
+@dataclass
+class PipelineConfig:
+    """Render pipeline toggles (reference PipelineParams). The trainer
+    passes them to the viewer's ``poll``; ``debug`` reaches
+    ``rasterize(debug=...)``. The two Python-side toggles choose, in the
+    reference, where SH colours and 3D covariances are computed; here, as
+    in the JAX package, preprocess always computes both."""
+
+    convert_SHs_python: bool = False
+    compute_cov3D_python: bool = False
+    debug: bool = False
 
 
 @dataclass

@@ -19,11 +19,13 @@ Port of ``gaussian_splatting_with_eye_tracking_tpu/ops/amr.py``:
   (``decimation``) or dropping their instances at binning time
   (``predecimate``, ``binning.gaze_decimation_keep``).
 
-The port has no ``impl`` switch: the round and levels compositors are the
-CUDA kernels on CUDA tensors and their plain versions on CPU tensors. The
-JAX package's ``impl="jnp"`` oracle (``tile_blend.render_tiles_jnp``) is
-not ported yet. All tiles are ``blend.TILE`` pixels square and chunks
-``blend.CHUNK`` wide.
+The 5-step frame's rounds take JAX's ``impl`` switch: ``"kernels"`` (the
+default; also ``"auto"``) is ``blend.blend_round``, the CUDA kernel on CUDA
+tensors and its plain version on CPU tensors; ``"jnp"`` is the oracle,
+``tile_blend.render_tiles_jnp`` on the round's stride-2 subgrid with the
+gated tiles' counts (no early stop). The fused frame has no oracle, as in
+JAX. All tiles are ``blend.TILE`` pixels square and chunks ``blend.CHUNK``
+wide.
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning as binning_ops
-from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend
+from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, tile_blend
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops.projection import (
     CameraParams,
     preprocess,
@@ -175,22 +177,34 @@ def _level_map(tile_levels: torch.Tensor, grid_x: int, grid_y: int) -> torch.Ten
     return tile_levels.reshape(grid_y, grid_x).repeat_interleave(pw, 0).repeat_interleave(pw, 1)
 
 
-def fovea_step_render(state: AMRState, rnd: int, grid_x: int, grid_y: int) -> AMRState:
+def fovea_step_render(state: AMRState, rnd: int, grid_x: int, grid_y: int, *,
+                      impl: str = "kernels", max_per_tile: int = 1024) -> AMRState:
     """Step k (1..4): render round k for the tiles at level >= k and merge
-    it into the image (through strided views of a copy of it). The tiles
-    launch in one order per frame (``blend.round_order``, sorted by the
-    first round to run), each round's tiles a prefix of it; round k splits
-    each tile over ``ROUND_SPLIT[k - 1]`` CTAs."""
+    it into the image (through strided views of a copy of it). With the
+    kernels the tiles launch in one order per frame (``blend.round_order``,
+    sorted by the first round to run), each round's tiles a prefix of it;
+    round k splits each tile over ``ROUND_SPLIT[k - 1]`` CTAs. ``"jnp"``
+    renders the round with the oracle, each tile's instances capped at
+    ``max_per_tile``."""
     offx, offy = ROUND_OFFSET[rnd]
     gate = state.tile_levels >= rnd
     counts = state.offsets[1:] - state.offsets[:-1]
+    gated_counts = torch.where(gate, counts, 0)
     order = state.round_order
-    if order is None:
-        order = blend.round_order(counts, state.tile_levels)
-    rows = blend.blend_round(state.feat_soa, state.offsets, grid_x, grid_y, offx=offx,
-                             offy=offy, counts_override=torch.where(gate, counts, 0),
-                             order=order, split=ROUND_SPLIT[rnd - 1])
-    color_r, final_t_r = _subgrid_image(rows, grid_x, grid_y)
+    if impl == "jnp":
+        color_r, final_t_r = tile_blend.render_tiles_jnp(
+            state.xy, state.conics, state.rgb, state.opacities, state.gauss_id, state.offsets,
+            grid_x, grid_y, TILE, torch.zeros(3, device=state.xy.device),
+            max_per_tile=max_per_tile, stride=2, offx=offx, offy=offy, counts=gated_counts)
+    elif impl in ("kernels", "auto"):
+        if order is None:
+            order = blend.round_order(counts, state.tile_levels)
+        rows = blend.blend_round(state.feat_soa, state.offsets, grid_x, grid_y, offx=offx,
+                                 offy=offy, counts_override=gated_counts, order=order,
+                                 split=ROUND_SPLIT[rnd - 1])
+        color_r, final_t_r = _subgrid_image(rows, grid_x, grid_y)
+    else:
+        raise ValueError(f"fovea_step_render: impl {impl!r} is not kernels, auto or jnp")
     gate_px = _level_map(gate, grid_x, grid_y)
     color, final_t = state.color.clone(), state.final_t.clone()
     cur_c, cur_t = color[:, offy::2, offx::2], final_t[offy::2, offx::2]
@@ -274,16 +288,18 @@ def render_amr_fused(means3d, scales, quats, opacities, sh, sh_degree, cam: Came
 
 def render_amr(means3d, scales, quats, opacities, sh, sh_degree, cam: CameraParams, bg, *,
                max_instances: int = 1 << 20, active_mask=None, gaze_xy=None, gaze_radii=None,
-               interpolate_image: bool = True, percentiles=(0.25, 0.5, 0.9)):
+               interpolate_image: bool = True, percentiles=(0.25, 0.5, 0.9),
+               impl: str = "kernels", max_per_tile: int = 1024):
     """The 5-step foveated frame: step 0, rounds 1..4 (one
-    ``blend.blend_round`` launch each), interpolation, background.
-    Returns (color (3, H, W), state)."""
+    ``blend.blend_round`` launch each, or the oracle with ``impl="jnp"``),
+    interpolation, background. Returns (color (3, H, W), state)."""
     grid_x, grid_y = _grid(cam)
     state = fovea_step0(means3d, scales, quats, opacities, sh, sh_degree, cam,
                         max_instances=max_instances, active_mask=active_mask,
                         gaze_xy=gaze_xy, gaze_radii=gaze_radii, percentiles=percentiles)
     for rnd in range(1, 5):
-        state = fovea_step_render(state, rnd, grid_x, grid_y)
+        state = fovea_step_render(state, rnd, grid_x, grid_y, impl=impl,
+                                  max_per_tile=max_per_tile)
     if interpolate_image:
         state = interpolate(state, grid_x, grid_y)
     color = state.color + state.final_t[None] * bg[:, None, None]

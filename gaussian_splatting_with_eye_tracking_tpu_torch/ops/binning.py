@@ -20,6 +20,11 @@ Port of ``Binning``, ``SortedInstances``, ``_tile_ellipse_kept``,
 Kept instances have unique keys, so ``gauss_id[:num_instances]`` and the
 feature rows there are exactly the JAX package's; dead slots tie and may
 come in another order.
+
+``bin_gaussians`` is the port of the JAX function of that name, the
+binning of the ``impl="jnp"`` oracle path: the same list by another route
+(a gather per slot from a prefix sum of start marks, no expand, no
+feature rows), for cross-checks of the route above.
 """
 
 from __future__ import annotations
@@ -114,6 +119,88 @@ def gaze_decimation_keep(tx, ty, gid, gaze_xy, radii, steps, tile_px):
             st = torch.where(lvl == level, torch.full_like(st, steps[level - 1]), st)
     tile_hash = ty * 797 + tx  # odd multiplier decorrelates rows
     return (gid % st) == (tile_hash % st)
+
+
+def bin_gaussians(prep, grid_x: int, grid_y: int, max_instances: int, tile_px: int = 32,
+                  max_live: int | None = None) -> Binning:
+    """The sorted instance list of a ``projection.Preprocessed``, by JAX's
+    gather formulation. ``max_instances`` bounds the rect enumeration,
+    ``max_live`` the ellipse-culled instances kept in the sorted list
+    (culled and dropped slots sort past the live prefix, so truncating
+    there is exact); ``overflow`` reports either.
+
+    Slot k's gaussian comes from a +1 at every gaussian's first slot
+    (those past the capacity dropped) and a prefix sum; its tile from the
+    rect decode, then the exact ellipse cull and one sort of a (tile,
+    depth rank) key, the id coming back through the depth order. JAX packs
+    that key into int32 when tile and rank bits fit 32 (and every slot,
+    dead ones too, then equals JAX's) and otherwise sorts on (tile,
+    depth); the port's key is int64, so it always packs, and the kept
+    instances come out the same either way. Grids under 1024 tiles a
+    side, as JAX's packed rect assumes. ``gauss_start`` / ``gauss_count``:
+    each gaussian's kept instances in its pre-sort range."""
+    if max_live is None:
+        max_live = max_instances
+    max_live = min(max_live, max_instances)
+    num_tiles = grid_x * grid_y
+    dev = prep.means2d.device
+    tiles = prep.tiles_touched.to(torch.int64)
+    n = tiles.shape[0]
+    cum = torch.cumsum(tiles, 0)
+    total = cum[-1]
+    overflow = total > max_instances
+    excl = cum - tiles
+
+    k = torch.arange(max_instances, dtype=torch.int64, device=dev)
+    starts = excl[excl < max_instances]
+    mark = torch.zeros(max_instances, dtype=torch.int64, device=dev).index_add_(
+        0, starts, torch.ones_like(starts))
+    valid = k < total
+    g = torch.clamp(torch.where(valid, torch.cumsum(mark, 0) - 1, 0), 0, n - 1)
+
+    rank_bits = max(1, (n - 1).bit_length())
+    order = torch.argsort(prep.depths, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=dev)
+    width_r = torch.clamp_min(prep.rect_max[:, 0] - prep.rect_min[:, 0], 1).to(torch.int64)
+    r = k - excl[g]
+    w_r = width_r[g]
+    tx = prep.rect_min[g, 0].to(torch.int64) + r % w_r
+    ty = prep.rect_min[g, 1].to(torch.int64) + r // w_r
+    kept = valid
+    if prep.cull_thr is not None:
+        kept = valid & _tile_ellipse_kept(
+            tx, ty, prep.means2d[g, 0], prep.means2d[g, 1], prep.conics[g, 0],
+            prep.conics[g, 1], prep.conics[g, 2], prep.cull_thr[g], tile_px)
+    tile_id = torch.where(kept, ty * grid_x + tx, num_tiles)
+    overflow = overflow | (kept.sum() > max_live)
+
+    key = (tile_id << rank_bits) | torch.where(valid, rank[g], 0)
+    key_sorted = torch.sort(key).values[:max_live]
+    tile_sorted = (key_sorted >> rank_bits).to(torch.int32)
+    gauss_sorted = order[key_sorted & ((1 << rank_bits) - 1)]
+
+    offsets = torch.searchsorted(
+        tile_sorted, torch.arange(num_tiles + 1, dtype=torch.int32, device=dev),
+        right=False).to(torch.int32)
+
+    # gaussian g's slots are [excl_g, cum_g) cut at the capacity, so its
+    # kept count is a difference of the kept prefix sum at consecutive starts
+    kc = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                    torch.cumsum(kept.to(torch.int64), 0)])
+    live_start = kc[torch.clamp_max(excl, max_instances)]
+    kc_end = kc[torch.clamp_max(total, max_instances)]
+    live_count = torch.cat([live_start[1:], kc_end[None]]) - live_start
+    return Binning(
+        gauss_id=gauss_sorted.to(torch.int32),
+        tile_id=tile_sorted,
+        offsets=offsets,
+        num_instances=kc[-1].to(torch.int32),
+        num_enumerated=total.to(torch.int32),
+        overflow=overflow,
+        gauss_start=live_start.to(torch.int32),
+        gauss_count=live_count.to(torch.int32),
+    )
 
 
 def compact_table(means2d, conics, rgb, opacities, tiles_touched, rect_min,

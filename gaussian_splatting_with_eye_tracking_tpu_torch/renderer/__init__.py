@@ -4,7 +4,7 @@ Port of ``sh_band_mask`` and ``render`` from
 ``gaussian_splatting_with_eye_tracking_tpu/renderer/__init__.py``: apply the
 model activations and mask the SH bands above the state's active degree
 (``activated``), and call the rasterizer (differentiable; ``means2d_offset`` is the handle for
-the screen-space gradient).
+the screen-space gradient) through the ``impl`` it names (``ops/rasterize.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +45,9 @@ def render(
     means2d_offset: Optional[torch.Tensor] = None,
     max_instances: int = 1 << 20,
     max_live: Optional[int] = None,
+    impl: str = "kernels",
+    max_per_tile: int = 2048,
+    debug: bool = False,
 ) -> rast.RenderOut:
     return rast.rasterize(
         *activated(state, max_sh_degree),
@@ -56,4 +59,7 @@ def render(
         active_mask=state.active,
         means2d_offset=means2d_offset,
         scale_modifier=scale_modifier,
+        impl=impl,
+        max_per_tile=max_per_tile,
+        debug=debug,
     )

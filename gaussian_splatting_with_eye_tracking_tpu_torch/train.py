@@ -24,11 +24,15 @@ without one. What it keeps from the JAX loop:
 - density control between steps, the point capacity first grown to cover
   every clone and split candidate (``train_lib.grow_for_densify``), the
   split normals from a seeded ``torch.Generator``; opacity resets; test
-  and train evaluation; PLY saves; checkpoints and ``--start_checkpoint``.
+  and train evaluation; PLY saves; checkpoints and ``--start_checkpoint``;
+- the live viewer (``renderer/network_gui.py``) on ``--ip``/``--port``,
+  polled at the top of every iteration (each step then resolves before
+  the next poll, as in JAX); one that cannot bind prints "Viewer server
+  disabled: ..." and training goes on; ``--disable_viewer`` turns it off;
+- the pipeline flags (``PipelineConfig``): ``--debug`` reaches
+  ``rasterize(debug=...)`` in the train step and the viewer's renders.
 
-Not ported: the live viewer (``network_gui``; without
-``--disable_viewer`` a line says so and training goes on) and
-multi-process runs (``WORLD_SIZE`` > 1 raises).
+Not ported: multi-process runs (``WORLD_SIZE`` > 1 raises).
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from gaussian_splatting_with_eye_tracking_tpu_torch import backend, train_lib
 from gaussian_splatting_with_eye_tracking_tpu_torch.config import (
     ModelConfig,
     OptimizationConfig,
+    PipelineConfig,
     add_config_args,
     extract_config,
     save_cfg_args,
@@ -95,21 +100,25 @@ class _Pending(NamedTuple):
 def training(
     cfg: ModelConfig,
     opt: OptimizationConfig,
-    testing_iterations,
-    saving_iterations,
-    checkpoint_iterations,
-    start_checkpoint,
+    pipe: Optional[PipelineConfig] = None,
+    testing_iterations=(),
+    saving_iterations=(),
+    checkpoint_iterations=(),
+    start_checkpoint=None,
     quiet=False,
+    gui=None,
     random_order_seed=0,
     instance_capacity=1 << 20,
     capacity_bucket=1 << 17,
 ):
     """Train on ``cfg.source_path`` into ``cfg.model_path`` on
-    ``cfg.data_device``. Returns (scene, state, log): ``log`` holds the
+    ``cfg.data_device``, polling ``gui`` (a ``NetworkGUI``) once per
+    iteration if given. Returns (scene, state, log): ``log`` holds the
     evaluations ({"test"|"train": {iteration: {"l1", "psnr"}}}), the active
     point count every 100 steps, the seconds of the loop and its last
     instance capacities."""
     dev = backend.resolve_data_device(cfg.data_device)
+    pipe = PipelineConfig() if pipe is None else pipe
     if not cfg.model_path:
         cfg.model_path = os.path.join("./output/", str(uuid.uuid4())[:10])
     os.makedirs(cfg.model_path, exist_ok=True)
@@ -152,7 +161,8 @@ def training(
         if key not in steps:
             steps[key] = train_lib.make_train_step(
                 scene.tx, opt, max_sh_degree=scene.max_sh_degree, width=cam.width,
-                height=cam.height, max_instances=cap, max_live=min(cap_live, cap), device=dev)
+                height=cam.height, max_instances=cap, max_live=min(cap_live, cap), device=dev,
+                debug=pipe.debug)
         state, aux = steps[key](state, *step_args)
         return state, _Readback(aux)
 
@@ -213,6 +223,8 @@ def training(
         return state_p, redone
 
     for iteration in range(first_iter + 1, opt.iterations + 1):
+        if gui is not None:
+            gui.poll(state, scene, pipe, iteration, opt.iterations)
         if iteration % 1000 == 0:
             state = gm.oneup_sh_degree(state, scene.max_sh_degree)
         if not stack:
@@ -221,7 +233,8 @@ def training(
         densify_phase = opt.densify_from_iter <= iteration < opt.densify_until_iter
         step_args = (*cam_inputs(cam), bg, iteration < opt.densify_until_iter)
         sync_after = (
-            (iteration < opt.densify_until_iter and (
+            gui is not None
+            or (iteration < opt.densify_until_iter and (
                 (densify_phase and iteration % opt.densification_interval == 0)
                 or iteration % opt.opacity_reset_interval == 0
                 or (cfg.white_background and iteration == opt.densify_from_iter)))
@@ -329,17 +342,7 @@ def main(argv=None, random_order_seed=0):
     """Parse ``argv`` and train with ``random_order_seed`` (the camera
     order and the split draws); returns ``training``'s (scene, state,
     log)."""
-    parser = ArgumentParser(description="Training script parameters")
-    add_config_args(parser, ModelConfig(), "Model Parameters")
-    add_config_args(parser, OptimizationConfig(), "Optimization Parameters")
-    parser.add_argument("--detect_anomaly", action="store_true", default=False)
-    parser.add_argument("--test_iterations", nargs="+", type=int, default=[7_000, 30_000])
-    parser.add_argument("--save_iterations", nargs="+", type=int, default=[7_000, 30_000])
-    parser.add_argument("--quiet", action="store_true")
-    parser.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
-    parser.add_argument("--start_checkpoint", type=str, default=None)
-    parser.add_argument("--disable_viewer", action="store_true", default=False)
-    args = parser.parse_args(argv)
+    args = build_parser().parse_args(argv)
     args.save_iterations.append(args.iterations)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise RuntimeError("multi-process training is not ported yet: run one process")
@@ -348,21 +351,47 @@ def main(argv=None, random_order_seed=0):
     safe_state(args.quiet)
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
+    gui = None
     if not args.disable_viewer:
-        print("Viewer server disabled: the network viewer is not ported; training without it")
+        from gaussian_splatting_with_eye_tracking_tpu_torch.renderer import network_gui
+
+        try:
+            gui = network_gui.NetworkGUI(args.ip, args.port)
+        except OSError as e:
+            print(f"Viewer server disabled: {e}")
 
     out = training(
         extract_config(args, ModelConfig),
         extract_config(args, OptimizationConfig),
+        extract_config(args, PipelineConfig),
         set(args.test_iterations),
         set(args.save_iterations),
         set(args.checkpoint_iterations),
         args.start_checkpoint,
         quiet=args.quiet,
+        gui=gui,
         random_order_seed=random_order_seed,
     )
     print("\nTraining complete.")
     return out
+
+
+def build_parser() -> ArgumentParser:
+    """The reference's training arguments."""
+    parser = ArgumentParser(description="Training script parameters")
+    add_config_args(parser, ModelConfig(), "Model Parameters")
+    add_config_args(parser, OptimizationConfig(), "Optimization Parameters")
+    add_config_args(parser, PipelineConfig(), "Pipeline Parameters")
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
+    parser.add_argument("--detect_anomaly", action="store_true", default=False)
+    parser.add_argument("--test_iterations", nargs="+", type=int, default=[7_000, 30_000])
+    parser.add_argument("--save_iterations", nargs="+", type=int, default=[7_000, 30_000])
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int, default=[])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--disable_viewer", action="store_true", default=False)
+    return parser
 
 
 if __name__ == "__main__":

@@ -41,8 +41,9 @@ def _check_device(state, dev: torch.device, built: str):
 
 def make_train_step(tx: gm.Adam, opt: OptimizationConfig, max_sh_degree: int,
                     width: int, height: int, max_instances: int = 1 << 20,
-                    max_live: Optional[int] = None, device=None):
-    """Build the train step for one image size. Returns
+                    max_live: Optional[int] = None, device=None, debug: bool = False):
+    """Build the train step for one image size (``debug`` reaches
+    ``rasterize``: its inputs saved on an exception). Returns
     ``train_step(state, viewmatrix, projmatrix, campos, tan_fovx, tan_fovy,
     gt, bg, accumulate_stats, events=None) -> (state, StepAux)``.
 
@@ -69,7 +70,8 @@ def make_train_step(tx: gm.Adam, opt: OptimizationConfig, max_sh_degree: int,
                              requires_grad=True)
         out = renderer.render(
             cam, state._replace(params=params), bg, max_sh_degree=max_sh_degree,
-            means2d_offset=offset, max_instances=max_instances, max_live=max_live)
+            means2d_offset=offset, max_instances=max_instances, max_live=max_live,
+            debug=debug)
         mark(events, "forward")
         l1 = ssim_ops.l1_loss(out.color, gt)
         loss = (1.0 - opt.lambda_dssim) * l1 + opt.lambda_dssim * (
@@ -121,8 +123,11 @@ def grow_for_densify(state: gm.GaussianModelState,
 
 
 def make_eval_render(max_sh_degree, width, height, max_instances=1 << 20,
-                     max_live=None, device=None):
-    """Build the renderer for one image size. Returns
+                     max_live=None, device=None, impl="kernels", max_per_tile=2048,
+                     debug=False):
+    """Build the renderer for one image size, through the rasterizer's
+    ``impl`` (``ops/rasterize.py``; ``max_per_tile`` and ``debug`` pass to
+    it too). Returns
     ``eval_render(state, viewmatrix, projmatrix, campos, tan_fovx,
     tan_fovy, bg, scale_modifier=1.0) -> color (3, height, width)``, which
     runs without autograd on ``device`` (CUDA unless told otherwise) and
@@ -140,7 +145,8 @@ def make_eval_render(max_sh_degree, width, height, max_instances=1 << 20,
             out = renderer.render(
                 cam, state, bg, max_sh_degree=max_sh_degree,
                 max_instances=max_instances, max_live=max_live,
-                scale_modifier=scale_modifier,
+                scale_modifier=scale_modifier, impl=impl, max_per_tile=max_per_tile,
+                debug=debug,
             )
         return out.color
 

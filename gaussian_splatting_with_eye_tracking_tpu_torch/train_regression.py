@@ -4,7 +4,8 @@ Port of ``main`` from the repository's ``train_regression_r04.py`` (the
 protocol behind ``TRAIN_r05.json``)::
 
     python -m gaussian_splatting_with_eye_tracking_tpu_torch.train_regression \
-        [--iters 30000] [--seed 0] [--root DIR] [--model DIR] [--out FILE.json]
+        [--iters 30000] [--seed 0] [--root DIR] [--model DIR] [--out FILE.json] \
+        [--skip_bench] [--data_device cpu]
     python -m gaussian_splatting_with_eye_tracking_tpu_torch.train_regression \
         --seeds 0 1 2 [--iters 30000] [--out FILE.json]
 
@@ -16,17 +17,21 @@ protocol behind ``TRAIN_r05.json``)::
    and the last iteration (those under ``--iters``) and saving the model
    at 1000, 3500, 7000 and the last;
 3. ``render.main`` (test views) of each saved model and ``metrics.main``;
-4. a JSON record: the test PSNR and point trajectories, PSNR, SSIM and
-   points at each saved iteration, wall times, the CLI metrics and the
-   card's name and power limit.
+4. the trained model's 1080p bench (``trained_bench``; skipped with
+   ``--skip_bench``): the last saved PLY through ``ply_io``, seen by
+   ``make_camera(1920, 1088, cam_z=-5)`` at instance capacities of 2^21,
+   one forward + backward of mean(color^2) with respect to the means
+   timed as ``bench`` times it (``bench.time_fwd_bwd``);
+5. a JSON record: the test PSNR and point trajectories, PSNR, SSIM and
+   points at each saved iteration, wall times, the CLI metrics,
+   ``trained_bench_1080p`` ({live_instances, fwd_bwd_ms, mpix_per_s}, or
+   null when skipped) and the card's name and power limit.
 
 ``--seeds`` runs one such process per seed at once on the one card (each
 in its own ``--root``/``--model`` with a ``_seed<k>`` suffix) and writes
 their records, and the spread over the seeds, to ``--out``. The processes
 share the card and the host's cores, so their per-iteration times are
-not speed figures.
-
-The JAX script's 1080p benchmark of the trained model is not ported.
+not speed figures. Runs on the card unless ``--data_device cpu``.
 """
 
 from __future__ import annotations
@@ -40,14 +45,15 @@ from argparse import ArgumentParser
 
 import torch
 
-from gaussian_splatting_with_eye_tracking_tpu_torch import metrics, render, scene_synth, train
+from gaussian_splatting_with_eye_tracking_tpu_torch import backend, bench, fps_test, metrics
+from gaussian_splatting_with_eye_tracking_tpu_torch import render, scene_synth, train
+from gaussian_splatting_with_eye_tracking_tpu_torch import bench_scene as bs
+from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
+from gaussian_splatting_with_eye_tracking_tpu_torch.models import ply_io
 
-
-def card_name() -> str:
-    """``nvidia-smi``'s name and power limit of the first card."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip().splitlines()[0]
+BENCH_W, BENCH_H = 1920, 1088
+BENCH_CAPACITY = 1 << 21  # max_instances = max_live, as the JAX script's bench
+BENCH_REPS = bs.REPS
 
 
 def run_cli(fn, argv):
@@ -64,11 +70,26 @@ EVALS = (1000, 3500, 7000, 14500, 22000)  # test evaluations besides the last it
 SAVED = (1000, 3500, 7000)  # of those, the ones also saved, rendered and scored
 
 
+def trained_bench(ply_path: str, device=None) -> dict:
+    """Forward + backward at 1920x1088 of the model in ``ply_path`` (all its
+    SH bands, every point): {live_instances, fwd_bwd_ms, mpix_per_s}.
+    Raises if ``BENCH_CAPACITY`` overflows."""
+    dev = backend.resolve_device(device)
+    p, degree = ply_io.load_gaussians_ply(ply_path, dev)
+    scene = (p.xyz, gm.get_scaling(p), p.rotation, gm.get_opacity(p), gm.get_sh(p))
+    cam = bs.make_camera(BENCH_W, BENCH_H, cam_z=-5.0, device=dev)
+    res = bench.time_fwd_bwd(scene, cam, torch.zeros(3, device=dev), degree, BENCH_CAPACITY,
+                             BENCH_CAPACITY, BENCH_REPS)
+    return {"live_instances": res["instances"], "fwd_bwd_ms": res["ms"],
+            "mpix_per_s": BENCH_W * BENCH_H / res["ms"] / 1e3}
+
+
 def run_one(args):
-    """One seed's run (steps 1-4 above); returns its record."""
+    """One seed's run (steps 1-5 above); returns its record."""
+    dev = backend.resolve_data_device(args.data_device)
     t_all = time.time()
     print("== synthesizing dataset ==", flush=True)
-    scene_synth.synthesize_dataset(args.root)
+    scene_synth.synthesize_dataset(args.root, device=dev)
 
     print("== training (CLI) ==", flush=True)
     test_iters = [i for i in EVALS if i < args.iters] + [args.iters]
@@ -77,7 +98,8 @@ def run_one(args):
     _, _, log = run_cli(lambda argv: train.main(argv, random_order_seed=args.seed), [
         "-s", args.root, "-m", args.model, "--iterations", str(args.iters),
         "--test_iterations", *map(str, test_iters), "--save_iterations", *map(str, saved),
-        "--checkpoint_iterations", str(args.iters), "--eval", "--disable_viewer"])
+        "--checkpoint_iterations", str(args.iters), "--eval", "--disable_viewer",
+        "--data_device", args.data_device])
     wall_train = time.time() - t0
 
     print("== render ==", flush=True)
@@ -85,13 +107,19 @@ def run_one(args):
         run_cli(render.main, ["-m", args.model, "--quiet", "--skip_train", "--iteration",
                               str(it)])
     print("== metrics ==", flush=True)
-    results = run_cli(metrics.main, ["-m", args.model])[args.model]
+    results = run_cli(metrics.main, ["-m", args.model, "--data_device",
+                                     args.data_device])[args.model]
+    bench_1080p = None
+    if not args.skip_bench:
+        print("== trained-model 1080p bench ==", flush=True)
+        bench_1080p = trained_bench(os.path.join(
+            args.model, "point_cloud", f"iteration_{args.iters}", "point_cloud.ply"), dev)
 
     doc = {
         "config": "default OptimizationConfig: densify 500..15000/100, opacity resets "
                   "every 3000, SH annealed to 3",
         "protocol": "CLI end-to-end: train -> render -> metrics (the port's modules)",
-        "card": card_name(),
+        "card": fps_test.card(dev),
         "seed": args.seed,
         "resolution": [256, 256], "n_cams": 24, "eval_split": "llffhold-8",
         "iters": args.iters,
@@ -104,16 +132,18 @@ def run_one(args):
         "at": {str(it): {"test_psnr": log["eval"]["test"][it]["psnr"],
                          "metrics_psnr": results[f"ours_{it}"]["PSNR"],
                          "ssim": results[f"ours_{it}"]["SSIM"],
-                         "points": log["points"][it]} for it in saved},
+                         "points": log["points"].get(it)} for it in saved},
         "final_capacity": log["capacity"],
         "metrics_results_json": results,
+        "trained_bench_1080p": bench_1080p,
         "total_wall_s": time.time() - t_all,
     }
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(doc, f, indent=2)
     print(json.dumps({k: doc[k] for k in ("card", "seed", "wall_time_train_s",
-                                          "ms_per_iteration", "at")}), flush=True)
+                                          "ms_per_iteration", "at", "trained_bench_1080p")}),
+          flush=True)
     return doc
 
 
@@ -126,7 +156,8 @@ def run_seeds(args):
         out = f"{stem}_seed{seed}.json"
         cmd = [sys.executable, "-m", "gaussian_splatting_with_eye_tracking_tpu_torch.train_regression", "--iters", str(args.iters),
                "--seed", str(seed), "--root", f"{args.root}_seed{seed}",
-               "--model", f"{args.model}_seed{seed}", "--out", out]
+               "--model", f"{args.model}_seed{seed}", "--out", out,
+               "--data_device", args.data_device, *(["--skip_bench"] if args.skip_bench else [])]
         os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
         logf = open(f"{stem}_seed{seed}.log", "w")
         jobs[seed] = (subprocess.Popen(cmd, stdout=logf, stderr=subprocess.STDOUT), logf, out)
@@ -147,7 +178,8 @@ def run_seeds(args):
                             "max": max(r["at"][it][key] for r in runs.values()),
                             "mean": sum(r["at"][it][key] for r in runs.values()) / len(runs)}
                       for key in ("test_psnr", "ssim", "points")}
-    doc = {"card": card_name(), "seeds": args.seeds, "iters": args.iters,
+    doc = {"card": fps_test.card(backend.resolve_data_device(args.data_device)),
+           "seeds": args.seeds, "iters": args.iters,
            "note": f"{len(runs)} processes shared one card and its host at once: their "
                    "per-iteration times are not speed figures",
            "spread": spread,
@@ -170,9 +202,11 @@ def main(argv=None):
     ap.add_argument("--root", default="logs/train_torch/scene")
     ap.add_argument("--model", default="logs/train_torch/model")
     ap.add_argument("--out", default="logs/train_torch/TRAIN.json")
+    ap.add_argument("--skip_bench", action="store_true",
+                    help="do not time the trained model at 1920x1088")
+    ap.add_argument("--data_device", default="cuda", help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise RuntimeError("the training regression runs on a CUDA card; none is available")
+    backend.resolve_data_device(args.data_device)
     return run_seeds(args) if args.seeds else run_one(args)
 
 

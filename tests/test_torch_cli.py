@@ -404,10 +404,17 @@ def test_clis_need_a_card_unless_told(no_cuda, tmp_path):
     (train, ["--debug"]), (train, ["--convert_SHs_python"]), (train, ["--ip", "0.0.0.0"]),
     (render, ["--compute_cov3D_python"])])
 def test_clis_reject_flags_nothing_reads(cli, flag, tmp_path, capsys):
-    """The reference's pipeline toggles and viewer address have no reader
-    in the port: the CLIs refuse them rather than ignore them."""
+    """The reference's pipeline toggles and viewer address: the trainer
+    reads them (the viewer, ``rasterize(debug=...)``) and parses them as
+    the reference does; the render CLI has no reader for them and refuses
+    them rather than ignore them."""
+    argv = ["-s", str(tmp_path), "-m", str(tmp_path), "--data_device", "cpu", *flag]
+    if cli is train:
+        args = train.build_parser().parse_args(argv)
+        assert getattr(args, flag[0][2:]) == (flag[1] if len(flag) > 1 else True)
+        return
     with pytest.raises(SystemExit) as exc:
-        _cli(cli.main, ["-s", str(tmp_path), "-m", str(tmp_path), "--data_device", "cpu", *flag])
+        _cli(cli.main, argv)
     assert exc.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
 
 

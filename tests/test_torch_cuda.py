@@ -839,3 +839,43 @@ def test_sweep_regrows_an_overflowing_capacity(dev, amr_mode, tmp_path, monkeypa
     assert grown[1:] == (r["capacity"], r["instances"], r["enumerated"])
     assert want[1:] == (1 << 14, r["instances"], r["enumerated"])
     assert torch.equal(grown[0], want[0])
+
+
+def test_parity_probe_gates(dev):
+    """The card parity probe (kernels against the jnp oracles at 256x256,
+    4,000 gaussians): every gate met, K1-K4 and the round kernel launched."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import backend, parity_probe
+
+    for kern in backend.kernels():
+        kern.launches = 0
+    res = parity_probe.run(dev, knn_points=5_000, knn_dup=1_000)
+    launches = {kern.name: kern.launches for kern in backend.kernels()}
+    assert res["ok"], res["failed"]
+    assert all(launches[k] >= 1 for k in ("expand_seg", "blend_fwd", "blend_bwd", "segsum"))
+    assert launches["blend_round"] >= 4
+
+
+def test_bin_gaussians_matches_build_sorted_instances_front_view(dev):
+    """The gather-route binning oracle against the kernel route on bench's
+    300k front view: the counters, offsets and live ids exactly."""
+    gx, gy = -(-cs.W // 32), -(-cs.H // 32)
+    _, prep = _front_view_prep(dev)
+    b = binning.bin_gaussians(prep, gx, gy, cs.MAX_INSTANCES, 32, max_live=cs.MAX_LIVE)
+    si = binning.build_sorted_instances(
+        prep.means2d, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched, prep.rect_min,
+        prep.rect_max, prep.cull_thr, prep.depths, gx, gy, cs.MAX_INSTANCES, 32,
+        max_live=cs.MAX_LIVE)
+    n = int(b.num_instances)
+    assert n > 1_000_000 and not bool(b.overflow)
+    for name in ("num_instances", "num_enumerated", "overflow", "offsets", "gauss_start",
+                 "gauss_count"):
+        assert torch.equal(getattr(b, name), getattr(si.binning, name)), name
+    assert torch.equal(b.gauss_id[:n], si.binning.gauss_id[:n])
+
+
+def test_blocked_3nn_matches_ckdtree(dev):
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import knn
+
+    pts = np.random.default_rng(0).uniform(-1, 1, (20_000, 3)).astype(np.float32)
+    got = knn.mean_sq_dist_3nn_blocked(torch.from_numpy(pts).to(dev)).cpu().numpy()
+    np.testing.assert_allclose(got, knn.mean_sq_dist_3nn(pts), rtol=1e-5)

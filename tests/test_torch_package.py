@@ -40,7 +40,7 @@ def _imported_modules(path: Path):
 
 def _forbidden(module: str) -> bool:
     root = module.split(".")[0]
-    return root in ("jax", "jaxlib") or root == "gaussian_splatting_with_eye_tracking_tpu"
+    return root in ("jax", "jaxlib", "tests") or root == "gaussian_splatting_with_eye_tracking_tpu"
 
 
 @pytest.mark.parametrize("target", ["package", "chip_smoke"])
