@@ -155,7 +155,33 @@ Phases (any failure raises and the script exits non-zero):
     goes on; both frames equal ``make_eval_render``'s image of the
     checkpoint's state at that camera, quantised to uint8 (at most one
     level apart on < 0.1 % of values), with their round-trip times;
-20. print a ``{"kernels": [...]}`` line, then as the last line
+20. multi-GPU training on the served model at 1920x1088 and phase 12's
+    524,288-slot state (``parallel/``): (a) one rank on NCCL in this
+    process: ``sharded_render`` at one band against phase 4's front image
+    (gate 1e-6), and one step of the tile-band and the gaussian-sharded
+    train steps against ``make_train_step``'s (loss within 1e-5 relative;
+    each gradient, from Adam's first moment, within 1e-4 of its tensor's
+    largest value; the parameters within 1 % of the group's learning rate
+    where the one-device gradient is above 1e-3 of its largest, all but
+    1 % of those elements), and the three steps' times; (b) two ranks
+    sharing the card, as subprocesses of this script on gloo (NCCL refuses
+    two ranks on one device): ``sharded_render`` at two bands against the
+    same image at (a)'s gate (each band's list starts its chunks where the
+    whole image's list has them, so the tile exit falls alike), the band
+    exchange (each band's rows equal the live rows
+    whose rect meets it, their centres equal as sets, peak memory within
+    ``exchange_memory_bytes`` + 10 %), two steps of each train step against
+    two one-device steps at (a)'s gates, no band over its capacity, K1 and
+    K2 in each rank for each render and K3 and K4 once per rank per step
+    (counters zeroed before, read after), and K1-K4 on the last rank's
+    band grid (60 x 17 tiles) against their plain versions (K1 bit-exact,
+    K2 and K3 at phases 5's and 13's gates, K4 within 1e-5); (c) the
+    trainer as two ranks (``python -m ...train``, torchrun's variables, a
+    model directory each) on the CLI phase's scene for 40 iterations:
+    ``load_checkpoint_dist`` reads iteration 40 and a finite state back
+    here, both ranks' states hash alike, only rank 0 wrote (``cfg_args``,
+    the PLY); (d) ``scaling_bench`` at 1 device with its defaults;
+21. print a ``{"kernels": [...]}`` line, then as the last line
     ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
@@ -332,10 +358,7 @@ def train_phase(params, cams, targets, bg):
 
     opt = OptimizationConfig()
     tx = gm.make_optimizer(opt, EXTENT)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    noise = torch.randn(params.f_dc.shape, generator=gen, device="cuda")
-    start = params._replace(f_dc=params.f_dc + 0.1 * noise)
-    state = gm.init_training(start, 3, tx, capacity=gm.next_pow2(N))
+    state, gen = train_start(params, tx)
     if state.params.xyz.shape[0] != 524_288 or int(gm.num_active(state)) != N:
         raise AssertionError("training state is not 300,000 active of 524,288 slots")
     caps = (MAX_INSTANCES, MAX_LIVE)
@@ -1650,6 +1673,463 @@ def viewer_phase(tmp):
     return out
 
 
+# -- phase 20: multi-GPU training ------------------------------------------------
+
+MP_RANKS = 2  # ranks sharing the card in (b) and (c)
+MP_STEPS = 2  # steps of each train step held in (b), one per view
+MP_TRAIN_ITERATIONS = 40  # of the two-rank trainer in (c)
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_TOL = 1e-4  # of each gradient's largest value
+STEP_CLEAR = 1e-3  # a gradient clear of rounding: above this share of its tensor's largest
+STEP_UPDATE_TOL = 0.01  # of the group's learning rate, where the gradient is clear
+STEP_OUTSIDE = 0.01  # share of those elements allowed outside the update gate
+RENDER_TOL = 1e-6  # a band render against the one-device render
+N_SLOTS = 1 << 19  # next_pow2(N): phase 12's capacity
+GRID_Y = -(-H // 32)  # the served view's tile rows
+
+
+def train_start(params, tx):
+    """Phase 12's training state: the model with f_dc perturbed by N(0,
+    0.1) from a seeded card generator, in next_pow2(N) = 524,288 slots.
+    Returns (state, the generator)."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    noise = torch.randn(params.f_dc.shape, generator=gen, device="cuda")
+    start = params._replace(f_dc=params.f_dc + 0.1 * noise)
+    return gm.init_training(start, 3, tx, capacity=gm.next_pow2(N)), gen
+
+
+def step_record(loss, state):
+    """What the multi-device steps are held to: the loss, the parameters and
+    Adam's first moment (on the CPU)."""
+    return {"loss": float(loss),
+            "params": {k: v.detach().cpu() for k, v in state.params._asdict().items()},
+            "mu": {k: v.detach().cpu() for k, v in state.opt_state.mu._asdict().items()}}
+
+
+def hold_steps(tag, got, want, tx):
+    """Hold a run of steps (``step_record``s) against the one-device
+    step's: the loss within STEP_LOSS_RTOL relative; each gradient (from
+    Adam's first moments: g_k = (mu_k - b1 mu_{k-1}) / (1 - b1)) within
+    STEP_GRAD_TOL of its tensor's largest value; the parameters within
+    STEP_UPDATE_TOL of the group's learning rate wherever the one-device
+    gradient is clear of rounding, all but STEP_OUTSIDE of those elements.
+    Returns the worst numbers; raises past a gate."""
+    worst = {"loss_rel": 0.0, "grad_rel": 0.0, "update_outside": 0.0}
+    prev = {"got": None, "want": None}
+    for k, (g, w) in enumerate(zip(got, want)):
+        worst["loss_rel"] = max(worst["loss_rel"], abs(g["loss"] - w["loss"]) / abs(w["loss"]))
+        for name in w["mu"]:
+            grads = {}
+            for who, rec in (("got", g), ("want", w)):
+                mu = rec["mu"][name].cuda()
+                before = prev[who][name].cuda() if prev[who] else torch.zeros_like(mu)
+                grads[who] = (mu - 0.9 * before) / 0.1
+            gmax = float(grads["want"].abs().max())
+            if gmax == 0.0:
+                continue
+            worst["grad_rel"] = max(worst["grad_rel"],
+                                    float((grads["got"] - grads["want"]).abs().max()) / gmax)
+            clear = grads["want"].abs() > STEP_CLEAR * gmax
+            dp = (g["params"][name].cuda() - w["params"][name].cuda()).abs()
+            lr = tx.lr(name, k)
+            outside = float((dp[clear] > STEP_UPDATE_TOL * lr).float().mean()) if clear.any() \
+                else 0.0
+            worst["update_outside"] = max(worst["update_outside"], outside)
+        prev = {"got": g["mu"], "want": w["mu"]}
+    log(f"{tag}: {len(got)} step(s) vs one device: {json.dumps(worst)}")
+    if not (worst["loss_rel"] <= STEP_LOSS_RTOL and worst["grad_rel"] <= STEP_GRAD_TOL
+            and worst["update_outside"] <= STEP_OUTSIDE):
+        raise AssertionError(f"{tag}: the steps depart from the one-device step: {worst}")
+    return worst
+
+
+def concat_shards(shards):
+    """Gaussian-sharded step records of every rank as one record."""
+    return [{"loss": parts[0]["loss"],
+             **{key: {k: torch.cat([p[key][k] for p in parts]) for k in parts[0][key]}
+                for key in ("params", "mu")}}
+            for parts in zip(*shards)]
+
+
+def timed_steps(step, state, views, targets, bg, mesh=None):
+    """Run ``step`` once per view: (step records, ms per step on the host
+    clock around a synchronize, the final state, launches per step)."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import backend
+
+    recs, ms, launches = [], [], []
+    for view, target in zip(views, targets):
+        torch.cuda.synchronize()
+        for kern in backend.kernels():
+            kern.launches = 0
+        t0 = time.perf_counter()
+        state, aux = step(state, *view, target, bg, True)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({kern.name: kern.launches for kern in backend.kernels()})
+        if bool(aux["overflow"]):
+            raise AssertionError("a multi-device step overflowed its capacities")
+        recs.append(step_record(aux["loss"], state))
+    return recs, ms, state, launches
+
+
+def mp_caps(n_bands, slots=None, max_instances=MAX_INSTANCES):
+    """The band steps' capacities: bench.py's enumeration capacity in every
+    band (it holds the whole front view), and exchange blocks of a rank's
+    rows (no source sends a band more rows than it holds)."""
+    return dict(max_instances_per_band=max_instances,
+                max_exchange_per_band=(slots or N_SLOTS) // n_bands)
+
+
+def one_rank_checks(state, start, tx, opt, cams, targets, bg, width, height, caps,
+                    reference_image):
+    """Phase 20 (a) on a one-rank mesh: ``sharded_render`` at one band
+    against ``reference_image`` (``make_eval_render``'s), then each train
+    step (tile band, gaussian-sharded) one step against
+    ``make_train_step``'s from ``start``. Returns the numbers, the
+    one-device steps' records over ``cams`` and the three steps with the
+    sharded start state."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import train_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch.parallel import sharded
+
+    mesh = sharded.make_mesh()
+    gmesh = sharded.make_mesh(axis="gauss")
+    out = {}
+    (color, _, _, overflow), launches = counted(
+        sharded.sharded_render, mesh, state, cams[0].params(), bg, max_sh_degree=3,
+        max_instances_per_band=caps["max_instances_per_band"])
+    err = float((color - reference_image).abs().max())
+    log(f"multi-GPU (a): sharded_render at 1 band vs make_eval_render: max |diff| {err} "
+        f"(gate {RENDER_TOL}); launches {launches}")
+    if err > RENDER_TOL or bool(overflow.any()):
+        raise AssertionError(f"multi-GPU (a): band render differs by {err}")
+    need_launches("multi-GPU (a) render", launches, {"expand_seg": 1, "blend_fwd": 1},
+                  none_of=("blend_bwd", "segsum"))
+    out["render"] = {"max_abs_diff": err, "launches": launches}
+
+    views = [train_lib.camera_arrays(c.params()) for c in cams]
+    single = train_lib.make_train_step(tx, opt, 3, width, height,
+                                       caps["max_instances_per_band"])
+    want, st = [], start
+    for view, target in zip(views, targets):
+        st, aux = single(st, *view, target, bg, True)
+        want.append(step_record(aux.loss, st))
+    band = sharded.make_sharded_train_step(
+        mesh, tx, opt, 3, width, height,
+        max_instances_per_band=caps["max_instances_per_band"])
+    gauss = sharded.make_gauss_sharded_train_step(
+        gmesh, tx, opt, 3, width, height, **caps)
+    for kind, step, st0 in (("band", band, start),
+                            ("gauss", gauss, sharded.shard_model_state(gmesh, start))):
+        recs, _, _, launches = timed_steps(step, st0, views[:1], targets[:1], bg)
+        need_launches(f"multi-GPU (a) {kind} step", launches[0],
+                      {"expand_seg": 1, "blend_fwd": 1, "blend_bwd": 1, "segsum": 1})
+        if launches[0]["blend_bwd"] != 1 or launches[0]["segsum"] != 1:
+            raise AssertionError(f"multi-GPU (a) {kind}: launches {launches[0]}")
+        out[kind] = {**hold_steps(f"multi-GPU (a) {kind} step", recs, want[:1], tx),
+                     "launches": launches[0]}
+    steps = {"make_train_step": (single, start), "band_1rank": (band, start),
+             "gauss_1rank": (gauss, sharded.shard_model_state(gmesh, start))}
+    return out, want, steps
+
+
+def band_kernel_checks(state, cam, target, bg, band, n_bands, cap):
+    """K1-K4 on band ``band`` of ``n_bands`` (its grid, its rects, its
+    shifted centres) against their plain versions: K1 bit-exact, K2 and K3
+    at phases 5's and 13's gates, K4 at 1e-5 of each row's largest."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import renderer
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning, blend, expand
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import projection, segsum
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import ssim as ssim_ops
+    from gaussian_splatting_with_eye_tracking_tpu_torch.parallel import sharded
+
+    gx, gy = -(-cam.width // 32), -(-cam.height // 32)
+    gyl = -(-gy // n_bands)
+    with torch.no_grad():
+        prep = projection.preprocess(*renderer.activated(state, 3), 3, cam,
+                                     active_mask=state.active)
+        local = sharded.band_local(prep, torch.zeros_like(prep.means2d), band, 32, gyl)
+        args = (local.means2d, local.conics, local.rgb, local.opacities, local.tiles_touched,
+                local.rect_min, local.rect_max, local.cull_thr, local.depths)
+        table, _ = binning.compact_table(*args)
+        k1 = expand.expand_rows_by_segments(table, 0, cap)
+        k1_plain = expand.expand_rows_by_segments_plain(table, 0, cap)
+        k1_diff = int((k1.view(torch.int32) != k1_plain.view(torch.int32)).sum())
+        si = binning.build_sorted_instances(*args, gx, gyl, cap, 32, max_live=cap)
+        b = si.binning
+        feat = blend.feat_soa_from_rows(si.feat_rows, blend.CHUNK)
+        k2 = blend.blend_fwd(feat, b.offsets, gx, gyl)
+        k2_plain = blend.blend_fwd_plain(feat, b.offsets, gx, gyl)
+        k2_err = float((k2[..., 0:4] - k2_plain[..., 0:4]).abs().max())
+        k2_tiles = int((k2[:, 0, 4] != k2_plain[:, 0, 4]).sum())
+    tiles = k2.clone().requires_grad_(True)
+    color, _ = blend.assemble_tiles(tiles, gx, gyl, 32, bg)
+    rows = slice(band * gyl * 32, min((band + 1) * gyl * 32, cam.height))
+    color = color[:, :rows.stop - rows.start, :cam.width]
+    loss = 0.8 * ssim_ops.l1_loss(color, target[:, rows]) + 0.2 * (
+        1.0 - ssim_ops.ssim(color, target[:, rows]))
+    (cot,) = torch.autograd.grad(loss, tiles)
+    with torch.no_grad():
+        cot = cot.contiguous()
+        k3 = blend.blend_bwd(feat, b.offsets, k2, cot, gx, gyl)
+        k3_plain = blend.blend_bwd_plain(feat, b.offsets, k2, cot, gx, gyl)
+        k3_rowmax = k3_plain.abs().amax(dim=1, keepdim=True)
+        k3_bad = bool(((k3 - k3_plain).abs() > 1e-3 * k3_rowmax + 1e-3 * k3_plain.abs()).any())
+        red = (k3, si.id_pos, b.gauss_start, b.gauss_count, cap)
+        k4 = blend.segment_reduce_grads(*red)
+        k4_plain = segsum.segment_sum_gather_plain(
+            k3, blend.id_order_source(si.id_pos, cap),
+            blend.id_order_bounds(b.gauss_start, b.gauss_count))
+        k4_rowmax = k4_plain.abs().amax(dim=1, keepdim=True)
+        k4_bad = bool(((k4 - k4_plain).abs() > 1e-5 * k4_rowmax).any())
+        torch.cuda.synchronize()
+    out = {"grid": [gx, gyl], "instances": int(b.offsets[-1]), "k1_values_differ": k1_diff,
+           "k2_max_abs_err": k2_err, "k2_chunks_done_tiles_differ": k2_tiles,
+           "k3_max_abs_err": float((k3 - k3_plain).abs().max()),
+           "k4_max_abs_err": float((k4 - k4_plain).abs().max())}
+    if (k1_diff or not k2_err <= 1e-3 or k2_tiles > 0.001 * gx * gyl or k3_bad or k4_bad
+            or bool(b.overflow)):
+        raise AssertionError(f"band {band}: a kernel disagrees with its plain version: {out}")
+    return out
+
+
+def mp_worker(port, rank, world, tmp):
+    """One rank of phase 20 (b), sharing the card with the others on gloo
+    (NCCL places one rank on a device): the band render, the exchange with
+    its peak memory, MP_STEPS steps of each train step, and on the last
+    rank K1-K4 on its band. Writes ``rank<r>.pt`` into ``tmp``."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import renderer, train_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import projection
+    from gaussian_splatting_with_eye_tracking_tpu_torch.parallel import multihost, sharded
+
+    multihost.maybe_initialize_distributed(f"tcp://127.0.0.1:{port}", world, rank,
+                                           backend="gloo", timeout_s=300)
+    ref = torch.load(os.path.join(tmp, "ref.pt"), weights_only=True)
+    targets = [t.cuda() for t in ref["targets"]]
+    raw = raw_params(*make_scene(N))
+    params = gm.GaussianParams(**{k: torch.tensor(v, device="cuda") for k, v in raw.items()})
+    state = gm.state_from_params(params, 3)
+    opt = OptimizationConfig()
+    tx = gm.make_optimizer(opt, EXTENT)
+    start, _ = train_start(params, tx)
+    bg = torch.zeros(3, device="cuda")
+    cams = [view_request(y, p) for y, p in VIEWS[:MP_STEPS]]
+    views = [train_lib.camera_arrays(c.params()) for c in cams]
+    mesh = sharded.make_mesh()
+    gmesh = sharded.make_mesh(axis="gauss")
+    caps = mp_caps(world)
+    out = {"rank": rank, "backend": torch.distributed.get_backend()}
+
+    (color, _, _, overflow), out["render_launches"] = counted(
+        sharded.sharded_render, mesh, state, cams[0].params(), bg, max_sh_degree=3,
+        max_instances_per_band=caps["max_instances_per_band"])
+    out["render_overflow"] = overflow.tolist()
+    if rank == 0:
+        out["image"] = color.cpu()
+
+    # the exchange: its rows per band against the whole preprocess's, and
+    # its peak memory against exchange_memory_bytes
+    gyl = -(-GRID_Y // world)
+    sstart = sharded.shard_model_state(gmesh, start)
+    with torch.no_grad():
+        cp = cams[0].params()
+        local = projection.preprocess(*renderer.activated(sstart, 3), 3, cp,
+                                      active_mask=sstart.active)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        recv, ex_overflow = sharded._band_exchange(local, gmesh, world, gyl,
+                                                   caps["max_exchange_per_band"])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        full = projection.preprocess(*renderer.activated(start, 3), 3, cp,
+                                     active_mask=start.active)
+        lo, hi = full.rect_min[:, 1], full.rect_max[:, 1]
+        inter = (full.tiles_touched > 0) & (lo < (rank + 1) * gyl) & (hi > rank * gyl)
+        got = recv[recv[:, 15] > 0.5]
+        same = all(torch.equal(torch.sort(got[:, c]).values,
+                               torch.sort(full.means2d[inter, c]).values) for c in (0, 1))
+    out["exchange"] = {
+        "rows": int(got.shape[0]), "want_rows": int(inter.sum()), "means2d_equal": same,
+        "overflow": bool(ex_overflow), "peak_bytes": int(peak),
+        "model_bytes": sharded.exchange_memory_bytes(N_SLOTS // world, world,
+                                                     caps["max_exchange_per_band"])}
+    del recv, got, full, local
+
+    band = sharded.make_sharded_train_step(
+        mesh, tx, opt, 3, W, H, max_instances_per_band=caps["max_instances_per_band"])
+    gauss = sharded.make_gauss_sharded_train_step(gmesh, tx, opt, 3, W, H, **caps)
+    recs, out["band_ms"], _, out["band_launches"] = timed_steps(band, start, views, targets,
+                                                                bg)
+    if rank == 0:
+        out["band"] = recs
+    out["gauss"], out["gauss_ms"], _, out["gauss_launches"] = timed_steps(
+        gauss, sstart, views, targets, bg)
+    if rank == world - 1:
+        out["kernels"] = band_kernel_checks(state, cams[0].params(), targets[0], bg, rank,
+                                            world, caps["max_instances_per_band"])
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def start_ranks(argvs, envs, cwd, timeout=600):
+    """Run one subprocess per argument list and wait for all, at most
+    ``timeout`` seconds; kill them all and raise if one runs into it or
+    fails. Returns their output."""
+    import subprocess
+
+    procs = [subprocess.Popen(argv, env={**os.environ, **env}, cwd=cwd,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for argv, env in zip(argvs, envs)]
+    deadline = time.monotonic() + timeout
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+                        .decode(errors="replace"))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"ranks ran past {timeout} s")
+    if any(p.returncode for p in procs):
+        raise AssertionError("ranks failed:\n" + "\n".join(
+            f"--- rank {i} (exit {p.returncode}) ---\n{log_[-6000:]}"
+            for i, (p, log_) in enumerate(zip(procs, logs))))
+    return logs
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multi_gpu_phase(tmp, params, state, images, bg):
+    """Phase 20: multi-GPU training on the 300k model at 1920x1088 and
+    phase 12's 524,288-slot state. (a) one rank on NCCL, in this process;
+    (b) two ranks sharing the card (subprocesses, gloo); (c) the two-rank
+    trainer on the CLI phase's scene; (d) scaling_bench at 1 device."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import scaling_bench, train_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import checkpoint as ckpt
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
+    from gaussian_splatting_with_eye_tracking_tpu_torch.parallel import multihost
+
+    t_phase = time.perf_counter()
+    out = {}
+    opt = OptimizationConfig()
+    tx = gm.make_optimizer(opt, EXTENT)
+    start, _ = train_start(params, tx)
+    cams = [view_request(y, p) for y, p in VIEWS[:MP_STEPS]]
+    targets = images[:MP_STEPS]
+
+    # -- (a) one rank, NCCL ----------------------------------------------
+    multihost.maybe_initialize_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, 0)
+    if torch.distributed.get_backend() != "nccl":
+        raise AssertionError(f"one rank on the card runs {torch.distributed.get_backend()}")
+    out["a"], want, steps = one_rank_checks(state, start, tx, opt, cams, targets, bg, W, H,
+                                            mp_caps(1), images[0])
+    view = train_lib.camera_arrays(cams[0].params())
+    out["a"]["step_ms"] = {name: cuda_ms(lambda: step(st, *view, targets[0], bg, True))
+                           for name, (step, st) in steps.items()}
+    del steps
+    log(f"multi-GPU (a) step times (front view, median of {REPS}, CUDA events): "
+        f"{json.dumps(out['a']['step_ms'])}")
+
+    # -- (b) two ranks sharing the card -----------------------------------
+    wdir = os.path.join(tmp, "mp")
+    os.makedirs(wdir)
+    torch.save({"targets": [t.cpu() for t in targets]}, os.path.join(wdir, "ref.pt"))
+    port = free_port()
+    t0 = time.perf_counter()
+    start_ranks([[sys.executable, os.path.abspath(__file__), "--mp-rank", str(port), str(r),
+                  str(MP_RANKS), wdir] for r in range(MP_RANKS)],
+                [{}] * MP_RANKS, cwd=os.path.dirname(os.path.abspath(__file__)))
+    ranks = [torch.load(os.path.join(wdir, f"rank{r}.pt"), weights_only=True)
+             for r in range(MP_RANKS)]
+    b = {"seconds": time.perf_counter() - t0, "backend": ranks[0]["backend"]}
+    b["render_max_abs_diff"] = float((ranks[0]["image"].cuda() - images[0]).abs().max())
+    log(f"multi-GPU (b): {MP_RANKS} ranks on {b['backend']}; sharded_render at "
+        f"{MP_RANKS} bands vs one device: max |diff| {b['render_max_abs_diff']} (gate "
+        f"{RENDER_TOL})")
+    if b["render_max_abs_diff"] > RENDER_TOL or any(any(r["render_overflow"]) for r in ranks):
+        raise AssertionError("multi-GPU (b): the band render departs from one device's")
+    b["exchange"] = [r["exchange"] for r in ranks]
+    for r, ex in enumerate(b["exchange"]):
+        log(f"multi-GPU (b) rank {r} exchange: {json.dumps(ex)}")
+        if (ex["rows"] != ex["want_rows"] or not ex["means2d_equal"] or ex["overflow"]
+                or ex["peak_bytes"] > 1.1 * ex["model_bytes"]):
+            raise AssertionError(f"multi-GPU (b): rank {r}'s exchange: {ex}")
+    b["band"] = hold_steps(f"multi-GPU (b) band step, {MP_RANKS} ranks", ranks[0]["band"],
+                           want, tx)
+    b["gauss"] = hold_steps(f"multi-GPU (b) gauss step, {MP_RANKS} ranks",
+                            concat_shards([r["gauss"] for r in ranks]), want, tx)
+    b["launches"] = {r["rank"]: {"render": r["render_launches"], "band": r["band_launches"],
+                                 "gauss": r["gauss_launches"]} for r in ranks}
+    for r in ranks:
+        need_launches(f"rank {r['rank']} render", r["render_launches"],
+                      {"expand_seg": 1, "blend_fwd": 1})
+        for kind in ("band", "gauss"):
+            for per_step in r[f"{kind}_launches"]:
+                if per_step["blend_bwd"] != 1 or per_step["segsum"] != 1:
+                    raise AssertionError(f"rank {r['rank']} {kind} step: {per_step}")
+                need_launches(f"rank {r['rank']} {kind} step", per_step,
+                              {"expand_seg": 1, "blend_fwd": 1})
+    b["step_ms"] = {kind: [r[f"{kind}_ms"] for r in ranks] for kind in ("band", "gauss")}
+    b["kernels"] = ranks[-1]["kernels"]
+    log(f"multi-GPU (b): step ms per rank (host clock, ranks sharing one card: no speed "
+        f"figure) {json.dumps(b['step_ms'])}; K1-K4 on rank {MP_RANKS - 1}'s band "
+        f"{json.dumps(b['kernels'])}; launches {json.dumps(b['launches'])}")
+    out["b"] = b
+
+    # -- (c) the two-rank trainer ----------------------------------------
+    scene_dir = os.path.join(tmp, "scene")
+    models = [os.path.join(tmp, f"mp_model{r}") for r in range(MP_RANKS)]
+    n = MP_TRAIN_ITERATIONS
+    port = free_port()
+    t0 = time.perf_counter()
+    start_ranks([[sys.executable, "-m", "gaussian_splatting_with_eye_tracking_tpu_torch.train",
+                  "-s", scene_dir, "-m", models[r], "--iterations", str(n),
+                  "--save_iterations", str(n), "--checkpoint_iterations", str(n),
+                  "--test_iterations", str(n), "--eval", "--quiet"]
+                 for r in range(MP_RANKS)],
+                [dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(r),
+                      LOCAL_RANK=str(r), WORLD_SIZE=str(MP_RANKS),
+                      LOCAL_WORLD_SIZE=str(MP_RANKS)) for r in range(MP_RANKS)],
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+    c = {"seconds": time.perf_counter() - t0}
+    path = ckpt.latest_checkpoint(models[0])
+    meta = ckpt.checkpoint_meta(path)
+    st, it = ckpt.load_checkpoint_dist(path)
+    c.update(checkpoint=os.path.basename(path), iteration=it, layout=meta["layout"],
+             ranks_agree=len(set(meta["digests"])) == 1 and len(meta["digests"]) == MP_RANKS,
+             finite=bool(torch.isfinite(st.params.xyz[st.active]).all()),
+             points=int(st.active.sum()), rank1_wrote=os.path.exists(models[1]),
+             rank0_wrote=sorted(os.listdir(models[0])))
+    log(f"multi-GPU (c): two-rank trainer, {n} iterations: {json.dumps(c)}")
+    ply = os.path.join(models[0], "point_cloud", f"iteration_{n}", "point_cloud.ply")
+    if not (it == n and c["ranks_agree"] and c["finite"] and not c["rank1_wrote"]
+            and os.path.exists(os.path.join(models[0], "cfg_args")) and os.path.exists(ply)):
+        raise AssertionError(f"multi-GPU (c): {c}")
+    out["c"] = c
+
+    # -- (d) scaling_bench at 1 device -------------------------------------
+    res = scaling_bench.main(["--devices", "1", "--out", os.path.join(tmp, "scaling.json")])
+    out["d"] = res
+    log(f"multi-GPU (d): scaling_bench {json.dumps(res)}")
+    if not (len(res) == 1 and res[0]["devices"] == 1 and res[0]["rays_per_s"] > 0):
+        raise AssertionError(f"scaling_bench: {res}")
+    torch.distributed.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1943,6 +2423,25 @@ def main() -> int:
         parity = parity_phase()
         trained = trained_bench_phase(tmp)
         viewer = viewer_phase(tmp)
+        # -- 20. multi-GPU training -----------------------------------------
+        multi = multi_gpu_phase(tmp, params, state, images, bg)
+    band = {"a": multi["a"], "b": multi["b"]["launches"]}
+
+    def band_launches(name):
+        """The kernel's launches over phase 20's counted runs, every rank."""
+        a = band["a"]
+        n = a["render"]["launches"][name] + a["band"]["launches"][name] + \
+            a["gauss"]["launches"][name]
+        for per_rank in band["b"].values():
+            n += per_rank["render"][name] + sum(s[name] for kind in ("band", "gauss")
+                                                for s in per_rank[kind])
+        return n
+
+    band_grid = multi["b"]["kernels"]["grid"]
+    band_errs = {"expand_seg": multi["b"]["kernels"]["k1_values_differ"],
+                 "blend_fwd": multi["b"]["kernels"]["k2_max_abs_err"],
+                 "blend_bwd": multi["b"]["kernels"]["k3_max_abs_err"],
+                 "segsum": multi["b"]["kernels"]["k4_max_abs_err"]}
 
     src = "gaussian_splatting_with_eye_tracking_tpu_torch/csrc/{}.cu"
     kernels = [
@@ -1979,6 +2478,11 @@ def main() -> int:
     log(json.dumps({"ritnet": rit, "card": smi}))
     log(json.dumps({"parity_probe": parity, "trained_bench_1080p": trained, "viewer": viewer,
                     "card": smi}))
+    for k in kernels:
+        if k["name"] in band_errs:
+            k.update(band_launches=band_launches(k["name"]), band_grid=band_grid,
+                     band_max_abs_err=band_errs[k["name"]])
+    log(json.dumps({"multi_gpu": {k: v for k, v in multi.items()}, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))
@@ -1986,4 +2490,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mp-rank"]:  # one rank of phase 20 (b)
+        port, rank, world, tmp = sys.argv[2:6]
+        sys.exit(mp_worker(port, int(rank), int(world), tmp))
     sys.exit(main())

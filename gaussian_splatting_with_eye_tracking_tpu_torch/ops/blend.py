@@ -108,13 +108,13 @@ _PLAIN_TILE_BATCH = 256
 _PLAIN_BWD_TILE_BATCH = 64
 
 
-def feat_soa_from_rows(feat_rows: torch.Tensor, chunk: int) -> torch.Tensor:
+def feat_soa_from_rows(feat_rows: torch.Tensor, chunk: int, lead: int = 0) -> torch.Tensor:
     """(10, K) sorted feature rows -> (FEAT, K') with zero rows 10..15 and
     lanes zero-padded to a chunk multiple (aligned chunk reads may touch
-    the pad). Port of ``_feat_soa_from_rows``."""
+    the pad), after ``lead`` zero lanes. Port of ``_feat_soa_from_rows``."""
     k = feat_rows.shape[1]
-    pad = (-k) % chunk
-    return torch.nn.functional.pad(feat_rows, (0, pad, 0, FEAT - feat_rows.shape[0]))
+    pad = (-(k + lead)) % chunk
+    return torch.nn.functional.pad(feat_rows, (lead, pad, 0, FEAT - feat_rows.shape[0]))
 
 
 def _chunk_ranges(offsets: torch.Tensor, chunk: int, counts: torch.Tensor | None = None):
@@ -594,7 +594,7 @@ def blend_bwd(feat_soa: torch.Tensor, offsets: torch.Tensor, fwd_out: torch.Tens
 
 def segment_reduce_grads(dfeat: torch.Tensor, id_pos: torch.Tensor,
                          gauss_start: torch.Tensor, gauss_count: torch.Tensor,
-                         max_instances: int) -> torch.Tensor:
+                         max_instances: int, lane_offset: int = 0) -> torch.Tensor:
     """Per-gaussian sums (NGRAD, N) of the per-instance gradients.
 
     Port of ``_segment_reduce_grads``. The JAX function sorts the gradient
@@ -605,9 +605,12 @@ def segment_reduce_grads(dfeat: torch.Tensor, id_pos: torch.Tensor,
     (``segsum.segment_sum_gather``). Where no instance was dropped for
     ``max_live`` these are JAX's bounds ``min(gauss_start ‖ last,
     n_live)``; where some were, their slots add nothing, so each gaussian
-    still sums exactly its own rendered instances."""
-    return segsum.segment_sum_gather(dfeat, id_order_source(id_pos, max_instances),
-                                     id_order_bounds(gauss_start, gauss_count))
+    still sums exactly its own rendered instances. ``lane_offset``: the
+    sorted instances sit that many lanes into ``dfeat``."""
+    src = id_order_source(id_pos, max_instances)
+    if lane_offset:
+        src = torch.where(src >= 0, src + lane_offset, src)
+    return segsum.segment_sum_gather(dfeat, src, id_order_bounds(gauss_start, gauss_count))
 
 
 def id_order_source(id_pos: torch.Tensor, max_instances: int) -> torch.Tensor:
@@ -646,23 +649,31 @@ class Splat(torch.autograd.Function):
     (tiles (T, P, OUTC), num_instances, num_enumerated, overflow).
     Backward: K3 and the per-gaussian gather-and-sum (K4); returns
     d xy, d conic, d rgb, d opacity per gaussian (nothing for the binning
-    inputs tiles_touched, rect_min, rect_max, cull_thr and depths)."""
+    inputs tiles_touched, rect_min, rect_max, cull_thr and depths).
+
+    ``lane_offset``, if given, maps the live instance count to a number of
+    empty lanes put before the sorted instances: a band of a larger image
+    (``parallel/sharded.py``) then aligns its chunks as the whole image's
+    list does, so the tile exit falls where it falls there."""
 
     @staticmethod
     def forward(ctx, xy, conics, rgb, opacities, tiles_touched, rect_min, rect_max,
-                cull_thr, depths, grid_x, grid_y, max_instances, max_live):
+                cull_thr, depths, grid_x, grid_y, max_instances, max_live, lane_offset=None):
         si = binning_ops.build_sorted_instances(
             xy, conics, rgb, opacities, tiles_touched, rect_min, rect_max,
             cull_thr, depths, grid_x, grid_y, max_instances, tile_px=TILE,
             max_live=max_live,
         )
         b = si.binning
-        feat_soa = feat_soa_from_rows(si.feat_rows, CHUNK)
-        tiles = blend_fwd(feat_soa, b.offsets, grid_x, grid_y)
-        ctx.save_for_backward(feat_soa, b.offsets, tiles, b.gauss_start,
+        lead = 0 if lane_offset is None else lane_offset(b.num_instances)
+        feat_soa = feat_soa_from_rows(si.feat_rows, CHUNK, lead)
+        offsets = b.offsets + lead if lead else b.offsets
+        tiles = blend_fwd(feat_soa, offsets, grid_x, grid_y)
+        ctx.save_for_backward(feat_soa, offsets, tiles, b.gauss_start,
                               b.gauss_count, si.id_pos)
         ctx.grid = (grid_x, grid_y)
         ctx.max_instances = max_instances
+        ctx.lead = lead
         ctx.mark_non_differentiable(b.num_instances, b.num_enumerated, b.overflow)
         return tiles, b.num_instances, b.num_enumerated, b.overflow
 
@@ -671,9 +682,9 @@ class Splat(torch.autograd.Function):
         feat_soa, offsets, tiles, gauss_start, gauss_count, id_pos = ctx.saved_tensors
         dfeat = blend_bwd(feat_soa, offsets, tiles, g_tiles.contiguous(), *ctx.grid)
         seg = segment_reduce_grads(dfeat, id_pos, gauss_start, gauss_count,
-                                   ctx.max_instances)
+                                   ctx.max_instances, ctx.lead)
         return (seg[0:2].T, seg[2:5].T, seg[5:8].T, seg[8],
-                None, None, None, None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None, None, None)
 
 
 def assemble_tiles(tiles, grid_x, grid_y, tile, bg):
@@ -690,15 +701,15 @@ def assemble_tiles(tiles, grid_x, grid_y, tile, bg):
     return color, final_t
 
 
-def render_tiles(prep, xy, grid_x, grid_y, bg, max_instances, max_live):
+def render_tiles(prep, xy, grid_x, grid_y, bg, max_instances, max_live, lane_offset=None):
     """Full-image differentiable renderer from a Preprocessed bundle (``xy``
     passed separately, as in the JAX package, so that a screen-space
     offset can ride on it) on TILE x TILE tiles. Returns (color, final_t,
     aux) with aux = (num_instances, num_enumerated, overflow). Port of
-    ``render_tiles_pallas``."""
+    ``render_tiles_pallas``; ``lane_offset`` as ``Splat`` takes it."""
     tiles, num_instances, num_enumerated, overflow = Splat.apply(
         xy, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched,
         prep.rect_min, prep.rect_max, prep.cull_thr, prep.depths,
-        grid_x, grid_y, max_instances, max_live)
+        grid_x, grid_y, max_instances, max_live, lane_offset)
     color, final_t = assemble_tiles(tiles, grid_x, grid_y, TILE, bg)
     return color, final_t, (num_instances, num_enumerated, overflow)

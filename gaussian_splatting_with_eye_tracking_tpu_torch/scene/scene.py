@@ -9,6 +9,8 @@ cameras with ``random.Random(seed)``, take ``cameras_extent`` from the
 scene normalization, build a camera list per resolution scale, and start
 the model from the point cloud or restore it from
 ``point_cloud/iteration_N``. The model lives on ``cfg.data_device``.
+``write=False`` leaves the model directory alone (the ranks of a
+multi-process run other than the first).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ class Scene:
         resolution_scales: List[float] = (1.0,),
         load_images: bool = True,
         seed: int = 0,
+        write: bool = True,
     ):
         self.device = backend.resolve_data_device(cfg.data_device)
         self.model_path = cfg.model_path
@@ -59,7 +62,7 @@ class Scene:
                                          cfg.eval)
         self.info = info
 
-        if not self.loaded_iter and self.model_path:
+        if not self.loaded_iter and self.model_path and write:
             os.makedirs(self.model_path, exist_ok=True)
             shutil.copyfile(info.ply_path, os.path.join(self.model_path, "input.ply"))
             cam_json = [cu.camera_to_json(i, c)

@@ -30,9 +30,20 @@ without one. What it keeps from the JAX loop:
   the next poll, as in JAX); one that cannot bind prints "Viewer server
   disabled: ..." and training goes on; ``--disable_viewer`` turns it off;
 - the pipeline flags (``PipelineConfig``): ``--debug`` reaches
-  ``rasterize(debug=...)`` in the train step and the viewer's renders.
-
-Not ported: multi-process runs (``WORLD_SIZE`` > 1 raises).
+  ``rasterize(debug=...)`` in the train step and the viewer's renders;
+- multi-process runs (``torchrun --nproc_per_node N -m ...train``, or
+  torchrun's variables set by hand): ``main`` joins the process group
+  before the first device use (``parallel/multihost.py``), the state is
+  replicated from rank 0 by broadcast, and every rank runs the same
+  seeded loop, the same densify choices and the same evaluations. The
+  host decisions taken from what a step read back (the overflow redo, the
+  adaptive capacities, the densify capacity, the non-finite-loss stop)
+  take the maximum over the ranks first, so that they come out the same
+  everywhere. Rank 0 alone prints and writes ``cfg_args``, the scene's
+  ``input.ply`` and ``cameras.json``, TensorBoard and the PLY snapshots;
+  every rank joins each checkpoint, a ``chkpnt<N>.shards`` directory
+  (``models/checkpoint.save_checkpoint_dist``; ``--start_checkpoint``
+  takes it too). The viewer is off.
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ from gaussian_splatting_with_eye_tracking_tpu_torch.config import (
 )
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import checkpoint as ckpt
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
+from gaussian_splatting_with_eye_tracking_tpu_torch.parallel import multihost
 from gaussian_splatting_with_eye_tracking_tpu_torch.scene import Scene
 from gaussian_splatting_with_eye_tracking_tpu_torch.utils.general_utils import safe_state
 
@@ -119,18 +131,38 @@ def training(
     instance capacities."""
     dev = backend.resolve_data_device(cfg.data_device)
     pipe = PipelineConfig() if pipe is None else pipe
+    distributed = multihost.is_distributed()
+    is_main = multihost.process_index() == 0
+    if distributed:
+        gui = None  # the viewer serves one process
+        mesh = multihost.make_global_mesh(device=dev)
     if not cfg.model_path:
         cfg.model_path = os.path.join("./output/", str(uuid.uuid4())[:10])
-    os.makedirs(cfg.model_path, exist_ok=True)
-    save_cfg_args(cfg.model_path, cfg)
-    tb = _try_tensorboard(cfg.model_path)
+    tb = None
+    if is_main:
+        os.makedirs(cfg.model_path, exist_ok=True)
+        save_cfg_args(cfg.model_path, cfg)
+        tb = _try_tensorboard(cfg.model_path)
 
-    scene = Scene(cfg, opt, seed=random_order_seed)
+    scene = Scene(cfg, opt, seed=random_order_seed, write=is_main)
     state = scene.gaussians
     first_iter = 0
     if start_checkpoint:
-        state, first_iter = ckpt.load_checkpoint(start_checkpoint, device=dev)
+        if os.path.isdir(start_checkpoint):
+            state, first_iter = ckpt.load_checkpoint_dist(start_checkpoint, device=dev)
+        else:
+            state, first_iter = ckpt.load_checkpoint(start_checkpoint, device=dev)
         print(f"Restored checkpoint at iteration {first_iter}")
+    if distributed:
+        state = multihost.replicate_to_mesh(state, mesh)
+
+    def save_ckpt(name, state, iteration):
+        path = os.path.join(cfg.model_path, name)
+        if distributed:
+            ckpt.save_checkpoint_dist(path + ckpt.SHARDS, state, iteration)
+            return path + ckpt.SHARDS
+        ckpt.save_checkpoint(path + ".ckpt", state, iteration)
+        return path + ".ckpt"
 
     bg = torch.tensor([1.0, 1.0, 1.0] if cfg.white_background else [0.0, 0.0, 0.0],
                       device=dev)
@@ -181,6 +213,8 @@ def training(
         state_p = p.state
         loss, l1, psnr, ne, ni, overflow = p.vals.get()
         redone = False
+        if distributed:
+            ne, ni, overflow = _agreed(ne, ni, overflow)
         if overflow:
             cap = _grow(max(ne, cap))
             cap_live = _grow(max(ni, cap_live))
@@ -189,6 +223,8 @@ def training(
                 print(f"[it {p.iteration}] instance capacity -> {cap}/{cap_live} (overflow redo)")
             state_p, vals = launch(p.cam, p.prev_state, p.step_args)
             loss, l1, psnr, ne, ni, overflow = vals.get()
+            if distributed:
+                ne, ni, overflow = _agreed(ne, ni, overflow)
             redone = True
         elif ne > 0.9 * cap or ni > 0.9 * cap_live:
             cap = _grow(max(int(ne * 1.3), cap))  # grow ahead of overflow
@@ -204,9 +240,11 @@ def training(
         else:
             shrink_streak = 0
 
-        if not math.isfinite(loss):
-            dump = os.path.join(cfg.model_path, f"nanstep{p.iteration}.ckpt")
-            ckpt.save_checkpoint(dump, p.prev_state, p.iteration - 1)
+        finite = math.isfinite(loss)
+        if distributed:
+            finite = not multihost.agree_max([not finite])[0]
+        if not finite:
+            dump = save_ckpt(f"nanstep{p.iteration}", p.prev_state, p.iteration - 1)
             raise FloatingPointError(
                 f"non-finite loss {loss} at iteration {p.iteration} "
                 f"(camera {p.cam.image_name}); pre-step state saved to {dump}")
@@ -264,6 +302,9 @@ def training(
             if densify_phase and iteration % opt.densification_interval == 0:
                 cap_pts = state.params.xyz.shape[0]
                 state = train_lib.grow_for_densify(state, opt)
+                if distributed:
+                    state = gm.grow_capacity(
+                        state, int(multihost.agree_max([state.params.xyz.shape[0]])[0]))
                 if state.params.xyz.shape[0] != cap_pts and not quiet:
                     print(f"[it {iteration}] point capacity -> {state.params.xyz.shape[0]} "
                           f"({int(gm.num_active(state))} active)")
@@ -278,14 +319,13 @@ def training(
             for name, ev in _report(scene, state, bg, iteration, tb, cam_inputs, dev,
                                     cap, quiet).items():
                 log["eval"][name][iteration] = ev
-        if iteration in saving_iterations:
+        if iteration in saving_iterations and is_main:
             print(f"\n[ITER {iteration}] Saving Gaussians")
             scene.gaussians = state
             scene.save(iteration)
         if iteration in checkpoint_iterations:
             print(f"\n[ITER {iteration}] Saving Checkpoint")
-            ckpt.save_checkpoint(os.path.join(cfg.model_path, f"chkpnt{iteration}.ckpt"),
-                                 state, iteration)
+            save_ckpt(f"chkpnt{iteration}", state, iteration)
 
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -329,6 +369,13 @@ def _report(scene, state, bg, iteration, tb, cam_inputs, dev, capacity, quiet=Fa
     return out
 
 
+def _agreed(ne, ni, overflow):
+    """The instance counts and the overflow flag, each the maximum over the
+    ranks."""
+    ne, ni, overflow = multihost.agree_max([ne, ni, overflow])
+    return int(ne), int(ni), bool(overflow)
+
+
 def _try_tensorboard(model_path):
     try:
         from torch.utils.tensorboard import SummaryWriter
@@ -344,8 +391,12 @@ def main(argv=None, random_order_seed=0):
     log)."""
     args = build_parser().parse_args(argv)
     args.save_iterations.append(args.iterations)
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise RuntimeError("multi-process training is not ported yet: run one process")
+    # a multi-process run (torchrun's variables) joins its process group
+    # before the first device use; the viewer serves one process
+    if multihost.maybe_initialize_distributed(device=args.data_device):
+        args.disable_viewer = True
+        if multihost.process_index() != 0:
+            args.quiet = True
 
     print("Optimizing " + (args.model_path or ""))
     safe_state(args.quiet)

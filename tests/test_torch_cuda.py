@@ -879,3 +879,37 @@ def test_blocked_3nn_matches_ckdtree(dev):
     pts = np.random.default_rng(0).uniform(-1, 1, (20_000, 3)).astype(np.float32)
     got = knn.mean_sq_dist_3nn_blocked(torch.from_numpy(pts).to(dev)).cpu().numpy()
     np.testing.assert_allclose(got, knn.mean_sq_dist_3nn(pts), rtol=1e-5)
+
+
+def test_one_rank_sharded_steps_match_make_train_step(dev):
+    """chip_smoke phase 20 (a) at 128x96 and 2,000 gaussians: one rank on
+    NCCL in this process; the band render at one band against
+    ``make_eval_render``'s image, and one step of each multi-device train
+    step against ``make_train_step``'s at the phase's gates."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import train_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
+    from gaussian_splatting_with_eye_tracking_tpu_torch.parallel import multihost
+    from tests.torch_helpers import free_port
+
+    raw = cs.raw_params(*cs.make_scene(2000, seed=1, spread=1.5, scale_range=(-3.5, -2.0)))
+    params = tgm.GaussianParams(**{k: torch.tensor(v, device=dev) for k, v in raw.items()})
+    state = tgm.state_from_params(params, 3)
+    opt = OptimizationConfig()
+    tx = tgm.make_optimizer(opt, cs.EXTENT)
+    noise = torch.randn(params.f_dc.shape, generator=torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    start = tgm.init_training(params._replace(f_dc=params.f_dc + 0.1 * noise), 3, tx,
+                              capacity=4096)
+    bg = torch.zeros(3, device=dev)
+    cams = [cs.view_request(yaw, pitch, 128, 96) for yaw, pitch in cs.VIEWS[:2]]
+    render = train_lib.make_eval_render(3, 128, 96, max_instances=1 << 16)
+    targets = [render(state, *train_lib.camera_arrays(c.params()), bg) for c in cams]
+    assert multihost.maybe_initialize_distributed(f"tcp://127.0.0.1:{free_port()}", 1, 0, 0)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        out, want, _ = cs.one_rank_checks(state, start, tx, opt, cams, targets, bg, 128, 96,
+                                          cs.mp_caps(1, slots=4096, max_instances=1 << 16),
+                                          targets[0])
+    finally:
+        torch.distributed.destroy_process_group()
+    assert len(want) == 2 and out["render"]["max_abs_diff"] <= cs.RENDER_TOL
