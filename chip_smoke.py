@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving, eye-tracked foveated serving and
 training paths, its train -> render -> metrics CLIs, its entry points,
 RITnet's training and evaluation, the kernels against the oracles, the
-trained model's bench and the viewer, on one CUDA card and check them.
+trained model's bench, the viewer, multi-GPU training and the study
+scripts, on one CUDA card and check them.
 
 Run from the repository root, with no arguments:
 
@@ -181,8 +182,24 @@ Phases (any failure raises and the script exits non-zero):
     ``load_checkpoint_dist`` reads iteration 40 and a finite state back
     here, both ranks' states hash alike, only rank 0 wrote (``cfg_args``,
     the PLY); (d) ``scaling_bench`` at 1 device with its defaults;
-21. print a ``{"kernels": [...]}`` line, then as the last line
-    ``{"ok": true, "device": {...}}``.
+21. the study scripts, in this process through each module's ``main`` at
+    1920x1088, the launch counters zeroed before and read after each:
+    ``AMR_test`` on fps_test's synthetic 100k scene and on the CLI
+    phase's model (its oracle's three checks hold exactly: the rect pairs
+    sum to ``num_enumerated``, the kept pairs per tile equal the
+    production counts and ``bin_gaussians``', the percentile levels of
+    those equal ``tile_levels``), its 5-step frame again through the
+    plain route (every wrapper its plain version, no launch) within 1e-3;
+    ``KDtree_test`` (k + 1 kept) and ``opacity_quant_test`` at 4 and 8
+    bits (the identity check at 100 dB or more) on the 100k scene, the
+    pruned and the quantized frame through the plain route within 1e-3;
+    ``amr_quality_sweep`` on the CLI model and 100k, 400k and 1M
+    gaussians: no overflow, PSNR and SSIM finite, the JSON written, and a
+    (4, 2, 1, 1)-decimated levels launch of each density against its
+    plain version at phase 9's gate;
+22. print a ``{"kernels": [...]}`` line (each kernel's launches on the
+    main path, and over phase 20's and phase 21's counted runs), then as
+    the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
 """
@@ -2130,6 +2147,199 @@ def multi_gpu_phase(tmp, params, state, images, bg):
     return out
 
 
+# -- phase 21: the study scripts --------------------------------------------------
+
+STUDY_W, STUDY_H = 1920, 1088
+STUDY_N = 100_000  # fps_test's synthetic scene
+STUDY_DENSITIES = (100_000, 400_000, 1_000_000)  # amr_quality_sweep's defaults
+STUDY_GATE = 1e-3  # a frame through the kernels against the plain route (phase 4's gate)
+
+
+class plain_route:
+    """Within it every kernel wrapper is its plain PyTorch version, on
+    any device: a path then runs the plain route on the card's tensors,
+    launching no kernel."""
+
+    def __enter__(self):
+        from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, expand
+
+        self.saved = [(expand, "expand_rows_by_segments"), (blend, "blend_fwd"),
+                      (blend, "blend_round"), (blend, "blend_levels")]
+        self.saved = [(m, name, getattr(m, name)) for m, name in self.saved]
+        expand.expand_rows_by_segments = expand.expand_rows_by_segments_plain
+        blend.blend_fwd = blend.blend_fwd_plain
+
+        def round_plain(*a, offx, offy, counts_override=None, order=None, split=1):
+            return blend.blend_round_plain(*a, offx=offx, offy=offy,
+                                           counts_override=counts_override)
+
+        def levels_plain(feat, offsets, counts, levels, gx, gy, **kw):
+            return blend.blend_levels_plain(feat, offsets, counts.to(torch.int32),
+                                            levels.to(torch.int32), gx, gy, **kw)
+
+        blend.blend_round, blend.blend_levels = round_plain, levels_plain
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.saved:
+            setattr(module, name, fn)
+
+
+def hold_frame(tag, render, cap):
+    """``render(capacity) -> (image, counters)`` at ``cap`` through the
+    kernels and through the plain route (which must launch none): images
+    within ``STUDY_GATE``, the instance counters equal. Returns the max
+    |err|."""
+    with torch.no_grad():
+        got, got_c = render(cap)
+        with plain_route():
+            (want, want_c), launches = counted(render, cap)
+    if any(launches.values()):
+        raise AssertionError(f"{tag}: the plain route launched {launches}")
+    err = float((got - want).abs().max())
+    counters = [(int(got_c.num_instances), int(want_c.num_instances)),
+                (int(got_c.num_enumerated), int(want_c.num_enumerated))]
+    if not err <= STUDY_GATE or any(a != b for a, b in counters) or bool(got_c.overflow):
+        raise AssertionError(f"{tag}: kernels vs plain route max |err| {err}, counters "
+                             f"{counters}, overflow {bool(got_c.overflow)}")
+    log(f"{tag}: kernels vs plain route max |err| {err:.3g}, {counters[0][0]} instances")
+    return err
+
+
+def studies_phase(tmp):
+    """Phase 21: the four study modules' ``main``s in this process at
+    1920x1088, on fps_test's synthetic 100k scene and the CLI phase's
+    model (``tmp``/model), and the sweep's three densities. Returns the
+    numbers, with each run's launches."""
+    import contextlib
+    import io
+
+    from gaussian_splatting_with_eye_tracking_tpu_torch import AMR_test, KDtree_test, fps_test
+    from gaussian_splatting_with_eye_tracking_tpu_torch import amr_quality_sweep, renderer
+    from gaussian_splatting_with_eye_tracking_tpu_torch import opacity_quant_test, study_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import amr
+
+    model_dir = os.path.join(tmp, "model")
+    synthetic = ["--synthetic", "--num_gaussians", str(STUDY_N)]
+    size = ["--width", str(STUDY_W), "--height", str(STUDY_H)]
+    out = {"launches": {}}
+    t_phase = time.perf_counter()
+
+    def run(tag, fn, argv):
+        with contextlib.redirect_stdout(io.StringIO()) as buf:
+            doc, launches = counted(fn, argv)
+        out["launches"][tag] = launches
+        log(f"{tag}: launches {launches}; " + buf.getvalue().strip().replace("\n", " | "))
+        return doc, launches
+
+    def view(argv):
+        return study_lib.study_view(study_lib.study_parser("", "").parse_args(argv + size))
+
+    # AMR_test: the like-for-like cross-check (a)-(c), and the 5-step frame
+    # against the plain route
+    amr_docs = {}
+    for tag, argv in (("synthetic_100k", synthetic), ("cli_model", ["-m", model_dir])):
+        doc, launches = run(f"AMR_test {tag}", AMR_test.main,
+                            argv + size + ["--out_dir", os.path.join(tmp, f"amr_{tag}")])
+        flags = {k: doc[k] for k in ("counts_match", "kept_match", "levels_match",
+                                     "bin_gaussians_match")}
+        if not all(flags.values()) or doc["rect_pairs"] != doc["enumerated"]:
+            raise AssertionError(f"AMR_test {tag}: {flags}, rect pairs {doc['rect_pairs']} "
+                                 f"of {doc['enumerated']} enumerated")
+        need_launches(f"AMR_test {tag}", launches,
+                      {"expand_seg": 3, "blend_fwd": 2, "blend_round": 4}, ("blend_levels",))
+        model, deg, active, cam, bg = view(argv)
+        doc["amr_frame_err"] = hold_frame(
+            f"AMR_test {tag} 5-step frame",
+            lambda c: amr.render_amr(*model, deg, cam, bg, active_mask=active, max_instances=c),
+            doc["frames"]["amr"]["capacity"])
+        amr_docs[tag] = {k: v for k, v in doc.items() if k not in ("tile_counts", "tile_levels")}
+    out["AMR_test"] = amr_docs
+
+    # KDtree_test and opacity_quant_test (4 and 8 bits) on the 100k scene;
+    # one frame of each through the plain route
+    model, deg, active, cam, bg = view(synthetic)
+    doc, launches = run("KDtree_test", KDtree_test.main,
+                        synthetic + size + ["--out_dir", os.path.join(tmp, "kdtree")])
+    if doc["kept"] != int(0.5 * doc["active_gaussians"]) + 1:
+        raise AssertionError(f"KDtree_test kept {doc['kept']} of {doc['active_gaussians']}")
+    need_launches("KDtree_test", launches, {"expand_seg": 3, "blend_fwd": 3},
+                  ("blend_round", "blend_levels"))
+    keep = KDtree_test.nearest(model[0], cam.campos, active, 0.5)
+    doc["pruned_frame_err"] = hold_frame(
+        "KDtree_test pruned frame", study_lib.rasterizer(model, deg, cam, bg, keep),
+        doc["frames"]["pruned"]["capacity"])
+    out["KDtree_test"] = doc
+    out["opacity_quant_test"] = {}
+    for bits in (4, 8):
+        doc, launches = run(f"opacity_quant_test {bits} bits", opacity_quant_test.main,
+                            synthetic + size + ["--bits", str(bits), "--out_dir",
+                                                      os.path.join(tmp, f"opq{bits}")])
+        if not (doc["psnr_quantized_residual_db"] >= 100
+                and math.isfinite(doc["psnr_quantized_db"])):
+            raise AssertionError(f"opacity_quant_test {bits} bits: {doc}")
+        need_launches(f"opacity_quant_test {bits}", launches, {"expand_seg": 4, "blend_fwd": 4},
+                      ("blend_round", "blend_levels"))
+        doc["quantized_frame_err"] = hold_frame(
+            f"opacity_quant_test {bits} bits quantized frame",
+            opacity_quant_test.renders(model, deg, cam, bg, active, bits)["quantized"],
+            doc["frames"]["quantized"]["capacity"])
+        out["opacity_quant_test"][bits] = doc
+
+    # the sweep: the CLI model and the three densities; the states it loads
+    # are kept, and a decimated frame of each held against the plain K5
+    loaded = {}
+    load = fps_test.load_or_synthetic
+
+    def keep_loaded(flags):
+        loaded[flags.num_gaussians] = load(flags)
+        return loaded[flags.num_gaussians]
+
+    fps_test.load_or_synthetic = keep_loaded
+    try:
+        doc, launches = run("amr_quality_sweep", amr_quality_sweep.main, [
+            "-m", model_dir, "--densities", *map(str, STUDY_DENSITIES), *size,
+            "--out", os.path.join(tmp, "amr_quality.json"),
+            "--png", os.path.join(tmp, "amr_quality.png")])
+    finally:
+        fps_test.load_or_synthetic = load
+    rows = doc["results"]
+    if [r["workload"] for r in rows] != ["trained"] + [f"synthetic_{n}" for n in
+                                                         STUDY_DENSITIES]:
+        raise AssertionError(f"amr_quality_sweep rows {[r['workload'] for r in rows]}")
+    for r in rows:
+        values = [d[k] for d in r["decimation"] for k in ("psnr_db", "ssim",
+                                                            "predecimate_psnr_db",
+                                                            "predecimate_ssim")]
+        if r["overflow"] or r["enumerated"] > r["capacity"] or not all(
+                math.isfinite(v) for v in values):
+            raise AssertionError(f"amr_quality_sweep {r['workload']}: {r}")
+    frames = len(rows) * 9  # a workload's capacity probe, then its 8 frames
+    need_launches("amr_quality_sweep", launches,
+                  {"expand_seg": frames, "blend_levels": frames},
+                  ("blend_fwd", "blend_round"))
+    with open(os.path.join(tmp, "amr_quality.json")) as f:
+        if json.load(f) != json.loads(json.dumps(doc)):
+            raise AssertionError("amr_quality_sweep: the JSON differs from the document")
+    gx, gy = -(-STUDY_W // 32), -(-STUDY_H // 32)
+    held = {}
+    for r in rows[1:]:
+        state, deg, active = loaded[int(r["workload"].split("_")[1])]
+        cam, gaze, radii = amr_quality_sweep.gaze_view(STUDY_W, STUDY_H, state.params.xyz.device)
+        with torch.no_grad():
+            st = amr.fovea_step0(*renderer.activated(state, deg), deg, cam, active_mask=active,
+                                 max_instances=r["capacity"], gaze_xy=gaze, gaze_radii=radii)
+            if bool(st.overflow):
+                raise AssertionError(f"{r['workload']}: capacity {r['capacity']} overflows")
+            held[r["workload"]] = hold_levels(st, gx, gy, f"{r['workload']} ", (4, 2, 1, 1))[0]
+        del st
+    loaded.clear()
+    out["amr_quality_sweep"] = {"results": rows, "blend_levels_err": held}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"studies: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2425,6 +2635,8 @@ def main() -> int:
         viewer = viewer_phase(tmp)
         # -- 20. multi-GPU training -----------------------------------------
         multi = multi_gpu_phase(tmp, params, state, images, bg)
+        # -- 21. the study scripts ------------------------------------------
+        studies = studies_phase(tmp)
     band = {"a": multi["a"], "b": multi["b"]["launches"]}
 
     def band_launches(name):
@@ -2483,6 +2695,9 @@ def main() -> int:
             k.update(band_launches=band_launches(k["name"]), band_grid=band_grid,
                      band_max_abs_err=band_errs[k["name"]])
     log(json.dumps({"multi_gpu": {k: v for k, v in multi.items()}, "card": smi}))
+    for k in kernels:
+        k["studies_launches"] = sum(run[k["name"]] for run in studies["launches"].values())
+    log(json.dumps({"studies": studies, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -48,26 +48,28 @@ CAPACITY = 1 << 20  # the root script's instance capacity, where each view start
 RATIOS = (0.2, 0.4, 0.6, 0.8, 1.0, 1.2, 1.4, 1.6, 1.8, 2.0)
 
 
+def timed(fn, device: torch.device):
+    """(``fn()``, its milliseconds) of one call: CUDA events around it on
+    a card, the host clock on the CPU."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def time_ms(fn, reps: int, device: torch.device, warmup: int = 1) -> float:
-    """Median milliseconds of ``fn()`` over ``reps`` runs after ``warmup``:
-    CUDA events on a card, the host clock around the call on the CPU."""
+    """Median milliseconds of ``fn()`` over ``reps`` runs after ``warmup``
+    (``timed``)."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return statistics.median(timed(fn, device)[1] for _ in range(reps))
 
 
 def timer_name(device: torch.device) -> str:

@@ -20,6 +20,9 @@ multi-process checkpoints (``save_checkpoint_orbax`` /
   when the replicas agree). The ranks write into ``<dir>.tmp``, meet, and
   the first rank renames it into place. Loading reassembles the whole
   state in one process, whatever the number of ranks that wrote it.
+  With ``async_save=True`` (the JAX package's orbax saves) the call
+  returns once the state is copied off the device, and a background
+  thread writes the files; ``wait_for_async_saves`` joins it.
 
 Every file is read with ``weights_only=True``, which unpickles no code.
 """
@@ -30,6 +33,7 @@ import hashlib
 import os
 import shutil
 import tempfile
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -50,10 +54,13 @@ def _fields(p: GaussianParams, fn) -> dict:
     return {name: fn(v) for name, v in zip(GaussianParams._fields, p)}
 
 
-def state_to_dict(state: GaussianModelState) -> dict:
-    """The state as plain containers of CPU tensors and ints."""
+def state_to_dict(state: GaussianModelState, copy=None) -> dict:
+    """The state as plain containers of CPU tensors and ints, each tensor
+    through ``copy`` (by default ``Tensor.cpu``)."""
     def cpu(t):
-        return None if t is None else t.detach().cpu()
+        if t is None:
+            return None
+        return t.detach().cpu() if copy is None else copy(t.detach())
 
     opt = state.opt_state
     return {
@@ -105,8 +112,9 @@ def load_checkpoint(path: str, device=None) -> Tuple[GaussianModelState, int]:
     return state_from_dict(payload["state"], dev), int(payload["iteration"])
 
 
-def _state_digest(state: GaussianModelState) -> str:
-    """SHA-256 of every tensor's bytes and every number of the state."""
+def _digest(d: dict) -> str:
+    """SHA-256 of every tensor's bytes and every number of a
+    ``state_to_dict`` dict."""
     h = hashlib.sha256()
 
     def add(x):
@@ -120,50 +128,150 @@ def _state_digest(state: GaussianModelState) -> str:
         else:
             h.update(repr(x).encode())
 
-    add(state_to_dict(state))
+    add(d)
     return h.hexdigest()
 
 
-def save_checkpoint_dist(path: str, state: GaussianModelState, iteration: int,
-                         mesh=None) -> None:
-    """Write ``state`` and ``iteration`` as the directory ``path``, every
-    rank of the run calling together. ``mesh`` is the gaussian-sharded
-    step's mesh when ``state`` is this rank's rows
-    (``parallel.sharded.shard_model_state``), None when every rank holds
-    the whole state. Outside a multi-process run, one process writes it
-    all."""
-    from gaussian_splatting_with_eye_tracking_tpu_torch.parallel import collectives as cc
-    from gaussian_splatting_with_eye_tracking_tpu_torch.parallel import multihost
+def _host_copy(state: GaussianModelState) -> dict:
+    """``state_to_dict`` of a snapshot of the state: a device tensor is
+    copied into pinned host memory on the current stream, which is then
+    synchronized, so later steps may change the state (in place too)."""
+    cuda = state.params.xyz.device.type == "cuda"
 
-    group = mesh or multihost.make_global_mesh(device=state.params.xyz.device)
-    rank, size = group.rank, group.size
+    def copy(t):
+        if t.device.type != "cuda":
+            return t.clone()
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return out.copy_(t, non_blocking=True)
+
+    d = state_to_dict(state, copy)
+    if cuda:
+        torch.cuda.current_stream(state.params.xyz.device).synchronize()
+    return d
+
+
+class _Writer:
+    """The checkpoint writes in flight: at most one background thread,
+    whose exception is raised by the next ``wait``."""
+
+    def __init__(self):
+        self.thread: Optional[threading.Thread] = None
+        self.error: Optional[Exception] = None
+
+    def wait(self) -> None:
+        if self.thread is not None:
+            self.thread.join()
+            self.thread = None
+        error, self.error = self.error, None
+        if error is not None:
+            raise RuntimeError("an overlapped checkpoint save failed") from error
+
+    def start(self, fn) -> None:
+        self.wait()
+
+        def run():
+            try:
+                fn()
+            except Exception as exc:  # raised again by wait()
+                self.error = exc
+
+        self.thread = threading.Thread(target=run, name="checkpoint-save")
+        self.thread.start()
+
+
+_WRITER = _Writer()
+
+
+def wait_for_async_saves() -> None:
+    """Block until the overlapped ``save_checkpoint_dist`` of this process
+    has written its files (on the first rank: until the directory is in
+    place), and raise if it failed. Returns at once when none is
+    pending."""
+    _WRITER.wait()
+
+
+_CKPT_GROUPS: dict = {}  # ranks -> the gloo group the writer threads meet on
+
+
+def _writer_group(group):
+    """A gloo process group over ``group``'s ranks for the writer threads
+    (None outside a process group). Collectives of the training run's own
+    group stay on the caller's thread; the writers meet on this one. Made
+    on first use, by every rank together (each save is called by all)."""
+    import torch.distributed as dist
+
+    if group is None:
+        return None
+    ranks = tuple(dist.get_process_group_ranks(group))
+    if ranks not in _CKPT_GROUPS:
+        _CKPT_GROUPS[ranks] = dist.new_group(list(ranks), backend="gloo")
+    return _CKPT_GROUPS[ranks]
+
+
+def _write_shards(path: str, host: dict, iteration: int, rank: int, size: int,
+                  rows: int, sharded: bool, group) -> None:
+    """Write a ``save_checkpoint_dist`` directory, every rank together
+    (``group`` a gloo group over the ranks, or None for one process): the
+    ranks exchange their state's SHA-256, write into ``<path>.tmp`` (every
+    rank its shard when ``sharded``, else the first rank alone), the first
+    rank writes the metadata and renames the directory into place, and
+    every rank returns once it is there."""
+    import torch.distributed as dist
 
     def barrier():
-        cc.all_reduce_(torch.zeros(1, device=group.device), group)
+        if group is not None:
+            dist.barrier(group=group)
 
-    digest = torch.tensor(list(bytes.fromhex(_state_digest(state))), dtype=torch.uint8)
-    digests = cc.gather_stacked(digest.to(torch.int32).to(group.device), group).cpu()
+    digests = [_digest(host)]
+    if group is not None:
+        digests = [None] * size
+        dist.all_gather_object(digests, _digest(host), group=group)
     tmp = path + ".tmp"
     if rank == 0:
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
     barrier()
-    rows = state.params.xyz.shape[0]
-    if mesh is not None or rank == 0:
-        torch.save(state_to_dict(state), os.path.join(tmp, f"shard{rank}.pt"))
+    if sharded or rank == 0:
+        torch.save(host, os.path.join(tmp, f"shard{rank}.pt"))
     if rank == 0:
-        sharded = mesh is not None
         torch.save({
             "version": VERSION, "iteration": int(iteration),
             "layout": "sharded" if sharded else "replicated", "world_size": size,
             "rows": [[r * rows, (r + 1) * rows] for r in range(size if sharded else 1)],
-            "digests": [bytes(d.to(torch.uint8).tolist()).hex() for d in digests],
+            "digests": digests,
         }, os.path.join(tmp, "meta.pt"))
     barrier()
     if rank == 0:
         shutil.rmtree(path, ignore_errors=True)
         os.replace(tmp, path)
     barrier()
+
+
+def save_checkpoint_dist(path: str, state: GaussianModelState, iteration: int,
+                         mesh=None, async_save: bool = False) -> None:
+    """Write ``state`` and ``iteration`` as the directory ``path``, every
+    rank of the run calling together. ``mesh`` is the gaussian-sharded
+    step's mesh when ``state`` is this rank's rows
+    (``parallel.sharded.shard_model_state``), None when every rank holds
+    the whole state. Outside a multi-process run, one process writes it
+    all.
+
+    The state is copied to host memory first (``_host_copy``); a
+    background thread then writes the files (``_write_shards``). With
+    ``async_save`` the call returns as soon as the copy is made and
+    ``wait_for_async_saves`` joins the thread; without it the call joins
+    it, and returns on every rank once the directory is in place. The
+    thread starts once this process's previous save has finished."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.parallel import multihost
+
+    group = mesh or multihost.make_global_mesh(device=state.params.xyz.device)
+    writers = _writer_group(group.group)
+    host = _host_copy(state)
+    rows = state.params.xyz.shape[0]
+    _WRITER.start(lambda: _write_shards(path, host, iteration, group.rank, group.size, rows,
+                                        mesh is not None, writers))
+    if not async_save:
+        _WRITER.wait()
 
 
 def _concat_rows(parts: list):

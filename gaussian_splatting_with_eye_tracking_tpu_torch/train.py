@@ -43,7 +43,8 @@ without one. What it keeps from the JAX loop:
   ``input.ply`` and ``cameras.json``, TensorBoard and the PLY snapshots;
   every rank joins each checkpoint, a ``chkpnt<N>.shards`` directory
   (``models/checkpoint.save_checkpoint_dist``; ``--start_checkpoint``
-  takes it too). The viewer is off.
+  takes it too), written in the background while the steps go on and
+  drained before ``training`` returns. The viewer is off.
 """
 
 from __future__ import annotations
@@ -156,10 +157,15 @@ def training(
     if distributed:
         state = multihost.replicate_to_mesh(state, mesh)
 
-    def save_ckpt(name, state, iteration):
+    def save_ckpt(name, state, iteration, async_save=False):
+        """A checkpoint: a ``.ckpt`` file, or in a multi-process run a
+        ``.shards`` directory, written in the background if ``async_save``
+        (drained before the function returns, as the JAX trainer drains
+        its orbax saves)."""
         path = os.path.join(cfg.model_path, name)
         if distributed:
-            ckpt.save_checkpoint_dist(path + ckpt.SHARDS, state, iteration)
+            ckpt.save_checkpoint_dist(path + ckpt.SHARDS, state, iteration,
+                                      async_save=async_save)
             return path + ckpt.SHARDS
         ckpt.save_checkpoint(path + ".ckpt", state, iteration)
         return path + ".ckpt"
@@ -325,8 +331,9 @@ def training(
             scene.save(iteration)
         if iteration in checkpoint_iterations:
             print(f"\n[ITER {iteration}] Saving Checkpoint")
-            save_ckpt(f"chkpnt{iteration}", state, iteration)
+            save_ckpt(f"chkpnt{iteration}", state, iteration, async_save=True)
 
+    ckpt.wait_for_async_saves()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     log["seconds"] = time.time() - t_start

@@ -913,3 +913,63 @@ def test_one_rank_sharded_steps_match_make_train_step(dev):
     finally:
         torch.distributed.destroy_process_group()
     assert len(want) == 2 and out["render"]["max_abs_diff"] <= cs.RENDER_TOL
+
+
+STUDY_ARGS = ["--synthetic", "--num_gaussians", "3000", "--width", "256", "--height", "192"]
+
+
+def _study_view():
+    from gaussian_splatting_with_eye_tracking_tpu_torch import study_lib
+
+    return study_lib.study_view(study_lib.study_parser("", "").parse_args(STUDY_ARGS))
+
+
+def test_amr_test_cross_check_on_the_card(dev, tmp_path):
+    """AMR_test's oracle on the card's production counts: (a)-(c) hold,
+    and its 5-step frame matches the plain route's."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import AMR_test
+
+    doc = AMR_test.main(STUDY_ARGS + ["--out_dir", str(tmp_path)])
+    assert doc["counts_match"] and doc["kept_match"] and doc["levels_match"]
+    assert doc["bin_gaussians_match"] and doc["device"].startswith("cuda")
+    model, deg, active, cam, bg = _study_view()
+    cs.hold_frame("AMR frame", lambda c: amr.render_amr(*model, deg, cam, bg, active_mask=active,
+                                                        max_instances=c), 1 << 16)
+
+
+def test_kdtree_test_pruned_frame_matches_plain(dev, tmp_path):
+    from gaussian_splatting_with_eye_tracking_tpu_torch import KDtree_test, study_lib
+
+    doc = KDtree_test.main(STUDY_ARGS + ["--out_dir", str(tmp_path)])
+    assert doc["kept"] == 1501 and doc["psnr_db"] > 0
+    model, deg, active, cam, bg = _study_view()
+    keep = KDtree_test.nearest(model[0], cam.campos, active, 0.5)
+    assert int(keep.sum()) == doc["kept"]
+    cs.hold_frame("pruned frame", study_lib.rasterizer(model, deg, cam, bg, keep), 1 << 16)
+
+
+def test_opacity_quant_test_quantized_frame_matches_plain(dev, tmp_path):
+    from gaussian_splatting_with_eye_tracking_tpu_torch import opacity_quant_test
+
+    doc = opacity_quant_test.main(STUDY_ARGS + ["--out_dir", str(tmp_path)])
+    assert doc["psnr_quantized_residual_db"] >= 100 and doc["psnr_quantized_db"] < 100
+    model, deg, active, cam, bg = _study_view()
+    cs.hold_frame("quantized frame",
+                  opacity_quant_test.renders(model, deg, cam, bg, active, 4)["quantized"],
+                  1 << 16)
+
+
+def test_amr_quality_sweep_decimated_frame_matches_plain(dev, tmp_path):
+    from gaussian_splatting_with_eye_tracking_tpu_torch import amr_quality_sweep
+
+    doc = amr_quality_sweep.main(["--densities", "3000", "--width", "256", "--height", "192",
+                                  "--out", str(tmp_path / "q.json"),
+                                  "--png", str(tmp_path / "q.png")])
+    (row,) = doc["results"]
+    assert not row["overflow"] and len(row["decimation"]) == 3 and row["card"] != "cpu"
+    state, deg, active = fps_test.synthetic_scene(3000, dev)
+    cam, gaze, radii = amr_quality_sweep.gaze_view(256, 192, dev)
+    st = amr.fovea_step0(*renderer.activated(state, deg), deg, cam, active_mask=active,
+                         max_instances=row["capacity"], gaze_xy=gaze, gaze_radii=radii)
+    for decimation in amr_quality_sweep.DECIMATIONS:
+        assert cs.hold_levels(st, 8, 6, "", decimation)[0] <= 1e-4

@@ -43,13 +43,21 @@ def _forbidden(module: str) -> bool:
     return root in ("jax", "jaxlib", "tests") or root == "gaussian_splatting_with_eye_tracking_tpu"
 
 
-@pytest.mark.parametrize("target", ["package", "chip_smoke"])
+STUDIES = ("AMR_test", "KDtree_test", "opacity_quant_test", "amr_quality_sweep")
+ROOT_SCRIPTS = {p.stem for p in ROOT.glob("*.py")}
+
+
+@pytest.mark.parametrize("target", ["package", "chip_smoke", "studies"])
 def test_no_jax_imports(target):
-    """Nor does the package import the smoke script above it."""
-    files = sorted(PORT.rglob("*.py")) if target == "package" else [ROOT / "chip_smoke.py"]
+    """Nor does the package import the smoke script above it; the study
+    modules, which keep the root scripts' names, import no root script
+    either."""
+    files = {"package": sorted(PORT.rglob("*.py")), "chip_smoke": [ROOT / "chip_smoke.py"],
+             "studies": [PORT / f"{name}.py" for name in STUDIES]}[target]
     assert files and all(f.exists() for f in files)
     bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imported_modules(f)
-           if _forbidden(m) or (target == "package" and m.split(".")[0] == "chip_smoke")]
+           if _forbidden(m) or (target != "chip_smoke" and m.split(".")[0] == "chip_smoke")
+           or (target == "studies" and m in ROOT_SCRIPTS)]
     assert not bad, bad
 
 
@@ -139,6 +147,19 @@ def test_foveated_entry_points_raise_without_cuda(no_cuda):
     assert out["device"] == "cpu" and out["timer"] == "host clock"
     assert len(out["steps_protocol"]) == 5 and out["plain_forward_ms"] > 0
     assert sum(out["level_histogram"]) == 1 and "fused_predecimated_ms" in out
+
+
+@pytest.mark.parametrize("name", STUDIES)
+def test_studies_raise_without_cuda(no_cuda, name, tmp_path):
+    """Each study's main runs on the card unless told otherwise."""
+    import importlib
+
+    module = importlib.import_module(f"gaussian_splatting_with_eye_tracking_tpu_torch.{name}")
+    argv = ["--densities", "8"] if name == "amr_quality_sweep" else ["--num_gaussians", "8"]
+    argv += ["--out", str(tmp_path / "q.json"), "--png", str(tmp_path / "q.png")] \
+        if name == "amr_quality_sweep" else ["--out_dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main(argv)
 
 
 def _small_scene():
