@@ -2,8 +2,8 @@
 """Drive the PyTorch port's serving, eye-tracked foveated serving and
 training paths, its train -> render -> metrics CLIs, its entry points,
 RITnet's training and evaluation, the kernels against the oracles, the
-trained model's bench, the viewer, multi-GPU training and the study
-scripts, on one CUDA card and check them.
+trained model's bench, the viewer, multi-GPU training, the study
+scripts and the numerics suite, on one CUDA card and check them.
 
 Run from the repository root, with no arguments:
 
@@ -197,8 +197,27 @@ Phases (any failure raises and the script exits non-zero):
     gaussians: no overflow, PSNR and SSIM finite, the JSON written, and a
     (4, 2, 1, 1)-decimated levels launch of each density against its
     plain version at phase 9's gate;
-22. print a ``{"kernels": [...]}`` line (each kernel's launches on the
-    main path, and over phase 20's and phase 21's counted runs), then as
+22. the numerics suite (``numerics.py``, the JAX package's
+    ``tests_tpu/`` and ``judge_repro/``), held to the limits of
+    ``numerics``' checks: the state before a JAX training run's collapse
+    read with ``load_jax_checkpoint`` (iteration 3176, 8,192 slots, 2,175
+    active, finite) on the scene ``scene_synth`` writes, both once;
+    ``numerics.repro``: iteration 3177's step through the kernels against
+    the jnp oracle at the train-step tolerances (loss, image, moments,
+    parameters, the exact counts; each healthy) and its frame's SSIM map
+    bounded and within 1e-4 of float64 per pixel (1e-3 on the mean); the
+    same with cuDNN's TF32 on and under bf16 autocast, the latter failing
+    the per-pixel check; the dark, flat frames; ``reset_opacity``, 30
+    steps and a densify step (losses finite, the model alive); the step
+    and the window with launches counted as in phases 20 and 21;
+    rasterize's gradients at the three degenerate distributions, kernels
+    against the oracle within 1e-3 of each field's largest value; K4's
+    table route on a 16-row table against float64 within 1e-5 of each
+    row's absolute sum at three shapes; the backward's two reduction
+    routes on one set of K3 records within 1e-4 of each field's largest
+    value;
+23. print a ``{"kernels": [...]}`` line (each kernel's launches on the
+    main path, and over phase 20's, 21's and 22's counted runs), then as
     the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result when no CUDA device is present.
@@ -2340,6 +2359,112 @@ def studies_phase(tmp):
     return out
 
 
+# -- phase 22: the numerics suite -------------------------------------------------
+
+NUMERICS_STATE = (3176, 8192, 2175)  # the collapse state's iteration, slots, active
+
+
+def numerics_clean(what, r):
+    """Raise unless a ``numerics`` check's readings ``r`` failed nothing."""
+    if r["failed"]:
+        shown = {k: v for k, v in r.items() if k != "state"}
+        raise AssertionError(f"numerics: {what} failed {r['failed']}: {shown}")
+
+
+def numerics_phase(tmp):
+    """Phase 22: the JAX package's hardware numerics suite on the card,
+    through ``numerics``' checks and their limits. The scene written and
+    the collapse state read (``load_jax_checkpoint``) once, before any
+    count; ``numerics.repro`` (the step through the kernels and the jnp
+    oracle, held to each other, and the SSIM of its frame against
+    float64) and the 30-step window, launches counted; the SSIM checks'
+    controls (the frame with cuDNN's TF32 on, and under bf16 autocast);
+    the dark, flat frames; the degenerate-distribution gradients, K4's
+    table route against float64 and the two reduction routes. Returns the
+    readings with each counted run's launches."""
+    import contextlib
+    import io
+
+    from gaussian_splatting_with_eye_tracking_tpu_torch import numerics as nm
+
+    t_phase = time.perf_counter()
+    out = {"launches": {}}
+    state, cam, scene = nm.collapse_fixture(os.path.join(tmp, "scene"))
+    out["reader"] = {"iteration": nm.ITERATION - 1, "device": str(state.params.xyz.device),
+                     "slots": int(state.active.shape[0]), "active": int(state.active.sum()),
+                     "adam_count": state.opt_state.count, "sh_degree": state.sh_degree,
+                     "finite": all(nm.active_params_finite(state).values())}
+    r = out["reader"]
+    log(f"numerics: load_jax_checkpoint {json.dumps(r)}")
+    if (r["device"] != "cuda:0" or (r["iteration"], r["slots"], r["active"]) != NUMERICS_STATE
+            or r["adam_count"] != NUMERICS_STATE[0] or not r["finite"]):
+        raise AssertionError(f"numerics: the collapse state read back as {r}")
+
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        doc, launches = counted(nm.repro, state, cam, scene)
+    for line in buf.getvalue().strip().splitlines():
+        log(f"numerics repro: {line}")
+    out["launches"]["repro"] = launches
+    frame = doc.pop("frame")
+    out["repro"] = doc
+    log(f"numerics: step {nm.ITERATION}, kernels vs jnp oracle, excess over tolerance "
+        f"{json.dumps(doc['step']['excess'])}; exact {json.dumps(doc['step']['exact'])}; "
+        f"launches {launches}")
+    numerics_clean(f"step {nm.ITERATION}", doc)
+    need_launches("numerics repro", launches, {k: 1 for k in ("expand_seg", "blend_fwd",
+                                                              "blend_bwd", "segsum")})
+
+    # the SSIM checks' controls: the fault they guard, made on purpose
+    gt = cam.gt()[None]
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = nm.ssim_check(frame, gt)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        bf16 = nm.ssim_check(frame, gt)
+    dark = nm.ssim_check(*nm.dark_flat_frames())
+    out["ssim"] = {"frame": doc["ssim"], "tf32_control": tf32, "bf16_control": bf16,
+                   "dark": dark}
+    for name, c in out["ssim"].items():
+        log(f"numerics: SSIM, {name}: map in [{c['min']!r}, {c['max']!r}], mean {c['mean']!r} "
+            f"vs float64 {c['mean_f64']!r} (|diff| {c['mean_diff']:.3g}), per pixel within "
+            f"{c['pixel_diff']:.3g}; failed {c['failed']}")
+    numerics_clean("SSIM on the dark, flat frames", dark)
+    if "pixel_f64" not in bf16["failed"]:
+        raise AssertionError(f"numerics: the SSIM checks do not see bf16 blurs: {bf16}")
+
+    window, launches = counted(nm.mini_schedule, state, scene)
+    out["launches"]["window"] = launches
+    out["window"] = {k: v for k, v in window.items() if k != "state"}
+    log(f"numerics: reset_opacity + 30 steps + densify at 14: losses {window['losses'][0]:.5f} "
+        f"... {window['losses'][-1]:.5f}, densify {window['densify']}, active "
+        f"{window['active']}; launches {launches}")
+    numerics_clean("the window", window)
+    need_launches("numerics window", launches, {k: nm.WINDOW_STEPS for k in (
+        "expand_seg", "blend_fwd", "blend_bwd", "segsum")})
+
+    out["degenerate"] = [nm.degenerate_check(opacity, scale) for opacity, scale in nm.DEGENERATE]
+    for d in out["degenerate"]:
+        log(f"numerics: gradients at opacity {d['opacity']}, scale {d['scale']}: kernels vs jnp "
+            f"oracle, max |err| / max |value| {json.dumps(d['err'])}; the cull sees "
+            f"{json.dumps(d['cull'])}")
+        numerics_clean(f"gradients at ({d['opacity']}, {d['scale']})", d)
+    out["segsum"] = [nm.segsum_check(*case) for case in nm.SEGSUM_CASES]
+    for d in out["segsum"]:
+        log(f"numerics: K4 table route, {d['rows']} rows x {d['columns']} columns, "
+            f"{d['segments']} segments: max |err| over the row's absolute sum vs float64 "
+            f"{d['err']:.3g}")
+        numerics_clean("K4 against float64", d)
+    out["routes"] = nm.route_check()
+    log(f"numerics: gather route vs table route on one set of K3 records, max |err| / max "
+        f"|value| {json.dumps(out['routes']['err'])}")
+    numerics_clean("the reduction routes", out["routes"])
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"numerics: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2637,6 +2762,9 @@ def main() -> int:
         multi = multi_gpu_phase(tmp, params, state, images, bg)
         # -- 21. the study scripts ------------------------------------------
         studies = studies_phase(tmp)
+    # -- 22. the numerics suite ------------------------------------------------
+    with tempfile.TemporaryDirectory() as tmp:
+        numerics = numerics_phase(tmp)
     band = {"a": multi["a"], "b": multi["b"]["launches"]}
 
     def band_launches(name):
@@ -2698,6 +2826,9 @@ def main() -> int:
     for k in kernels:
         k["studies_launches"] = sum(run[k["name"]] for run in studies["launches"].values())
     log(json.dumps({"studies": studies, "card": smi}))
+    for k in kernels:
+        k["numerics_launches"] = sum(run[k["name"]] for run in numerics["launches"].values())
+    log(json.dumps({"numerics": numerics, "card": smi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

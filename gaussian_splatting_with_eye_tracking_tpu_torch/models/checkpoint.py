@@ -23,19 +23,26 @@ multi-process checkpoints (``save_checkpoint_orbax`` /
   With ``async_save=True`` (the JAX package's orbax saves) the call
   returns once the state is copied off the device, and a background
   thread writes the files; ``wait_for_async_saves`` joins it.
+- ``load_jax_checkpoint``: the JAX package's own pickled checkpoints
+  (its ``save_checkpoint``), read without JAX or optax.
 
-Every file is read with ``weights_only=True``, which unpickles no code.
+Every file is read with ``weights_only=True``, or (the JAX package's) by an
+unpickler that resolves only the names such a checkpoint holds: neither
+unpickles code.
 """
 
 from __future__ import annotations
 
 import hashlib
+import importlib
 import os
+import pickle
 import shutil
 import tempfile
 import threading
-from typing import Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from gaussian_splatting_with_eye_tracking_tpu_torch import backend
@@ -43,6 +50,7 @@ from gaussian_splatting_with_eye_tracking_tpu_torch.models.gaussian_model import
     AdamState,
     GaussianModelState,
     GaussianParams,
+    state_from_jax,
 )
 
 VERSION = 1
@@ -323,3 +331,111 @@ def latest_checkpoint(model_dir: str, prefix: str = "chkpnt") -> Optional[str]:
         if key > best_key:
             best, best_key = os.path.join(model_dir, name), key
     return best
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's checkpoints
+# ---------------------------------------------------------------------------
+
+# Stand-ins, with the same fields, for the classes a JAX checkpoint's pickle
+# names: the state and parameters, and the optax states of ``make_optimizer``
+# (``multi_transform`` over per-group ``adam``s).
+
+
+class _JaxGaussianParams(NamedTuple):
+    xyz: Any
+    f_dc: Any
+    f_rest: Any
+    scaling: Any
+    rotation: Any
+    opacity: Any
+
+
+class _JaxGaussianModelState(NamedTuple):
+    params: Any
+    active: Any
+    max_radii2d: Any
+    xyz_grad_accum: Any
+    denom: Any
+    opt_state: Any
+    sh_degree: Any
+
+
+class _PartitionState(NamedTuple):
+    inner_states: Any
+
+
+class _MaskedState(NamedTuple):
+    inner_state: Any
+
+
+class _MaskedNode(NamedTuple):
+    pass
+
+
+class _ScaleByAdamState(NamedTuple):
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class _ScaleByScheduleState(NamedTuple):
+    count: Any
+
+
+class _EmptyState(NamedTuple):
+    pass
+
+
+_JAX_MODEL = "gaussian_splatting_with_eye_tracking_tpu.models.gaussian_model"
+_JAX_CLASSES = {
+    (_JAX_MODEL, "GaussianModelState"): _JaxGaussianModelState,
+    (_JAX_MODEL, "GaussianParams"): _JaxGaussianParams,
+    ("optax.transforms._combining", "PartitionState"): _PartitionState,
+    ("optax.transforms._masking", "MaskedState"): _MaskedState,
+    ("optax.transforms._masking", "MaskedNode"): _MaskedNode,
+    ("optax._src.transform", "ScaleByAdamState"): _ScaleByAdamState,
+    ("optax._src.transform", "ScaleByScheduleState"): _ScaleByScheduleState,
+    ("optax._src.base", "EmptyState"): _EmptyState,
+}
+# numpy 2 pickles ``_reconstruct`` under ``numpy._core``, numpy 1 under
+# ``numpy.core``: either name reads with whichever numpy is installed
+_MULTIARRAY = ("numpy._core.multiarray", "numpy.core.multiarray")
+
+
+def _numpy_multiarray():
+    try:
+        return importlib.import_module("numpy._core.multiarray")
+    except ImportError:  # numpy 1.x
+        return importlib.import_module("numpy.core.multiarray")
+
+
+class JaxCheckpointUnpickler(pickle.Unpickler):
+    """Resolves the globals of a JAX package checkpoint to the stand-ins
+    above and to numpy's array reconstruction (``_reconstruct``,
+    ``ndarray``, ``dtype``); any other global raises
+    ``pickle.UnpicklingError`` naming it."""
+
+    def find_class(self, module, name):
+        if (module, name) in _JAX_CLASSES:
+            return _JAX_CLASSES[(module, name)]
+        if module in _MULTIARRAY and name == "_reconstruct":
+            return _numpy_multiarray()._reconstruct
+        if module == "numpy" and name in ("ndarray", "dtype"):
+            return getattr(np, name)
+        raise pickle.UnpicklingError(f"a JAX checkpoint may not name the global {module}.{name}")
+
+
+def load_jax_checkpoint(path: str, device=None) -> Tuple[GaussianModelState, int]:
+    """(state, iteration) of a checkpoint the JAX package's
+    ``save_checkpoint`` wrote (a pickle of its ``GaussianModelState`` with
+    numpy leaves and the optax state), through ``state_from_jax``, on
+    ``device`` (CUDA unless told otherwise). Imports neither JAX nor
+    optax."""
+    dev = backend.resolve_device(device)
+    with open(path, "rb") as f:
+        payload = JaxCheckpointUnpickler(f).load()
+    if not isinstance(payload, dict) or payload.get("version") != 1:
+        version = payload.get("version") if isinstance(payload, dict) else type(payload)
+        raise ValueError(f"{path}: JAX checkpoint version {version}, expected 1")
+    return state_from_jax(payload["state"], device=dev), int(payload["iteration"])

@@ -51,8 +51,9 @@ def _blur(x: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
 
 
 def ssim_map(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch.Tensor:
-    """Per-pixel SSIM map of (N, C, H, W) inputs."""
-    window = torch.from_numpy(_gaussian_window(window_size, 1.5)).to(img1.device)
+    """Per-pixel SSIM map of (N, C, H, W) inputs, in their dtype (float64
+    inputs give the float64 map of the same float32 window)."""
+    window = torch.from_numpy(_gaussian_window(window_size, 1.5)).to(img1.device, img1.dtype)
     mu1, mu2 = _blur(img1, window), _blur(img2, window)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
     sigma1_sq = _blur(img1 * img1, window) - mu1_sq

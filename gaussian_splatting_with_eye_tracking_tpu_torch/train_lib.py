@@ -41,9 +41,12 @@ def _check_device(state, dev: torch.device, built: str):
 
 def make_train_step(tx: gm.Adam, opt: OptimizationConfig, max_sh_degree: int,
                     width: int, height: int, max_instances: int = 1 << 20,
-                    max_live: Optional[int] = None, device=None, debug: bool = False):
-    """Build the train step for one image size (``debug`` reaches
-    ``rasterize``: its inputs saved on an exception). Returns
+                    max_live: Optional[int] = None, device=None, debug: bool = False,
+                    impl: str = "kernels"):
+    """Build the train step for one image size, rendering through the
+    rasterizer's ``impl`` (``ops/rasterize.py``: the kernels, or the
+    ``"jnp"`` oracle; ``debug`` reaches it too: its inputs saved on an
+    exception). Returns
     ``train_step(state, viewmatrix, projmatrix, campos, tan_fovx, tan_fovy,
     gt, bg, accumulate_stats, events=None) -> (state, StepAux)``.
 
@@ -71,7 +74,7 @@ def make_train_step(tx: gm.Adam, opt: OptimizationConfig, max_sh_degree: int,
         out = renderer.render(
             cam, state._replace(params=params), bg, max_sh_degree=max_sh_degree,
             means2d_offset=offset, max_instances=max_instances, max_live=max_live,
-            debug=debug)
+            impl=impl, debug=debug)
         mark(events, "forward")
         l1 = ssim_ops.l1_loss(out.color, gt)
         loss = (1.0 - opt.lambda_dssim) * l1 + opt.lambda_dssim * (
