@@ -39,7 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gaussian_splatting_with_eye_tracking_tpu_torch import backend
+from gaussian_splatting_with_eye_tracking_tpu_torch import backend, tracing
 
 LEAK = 0.01  # torch LeakyReLU default
 CHANNELS = 32
@@ -307,6 +307,7 @@ def normalise_eye_image(img_u8_gray: np.ndarray) -> np.ndarray:
     return (x - 0.5) / 0.5
 
 
+@tracing.spanned("gs.gaze.prep")
 def preprocess_eye_image(img_u8_gray: np.ndarray, device=None) -> torch.Tensor:
     """uint8 grayscale (H, W) -> the normalised (1, 1, H, W) float32 model
     input on ``device``: CUDA unless the caller asks for another."""
@@ -314,6 +315,7 @@ def preprocess_eye_image(img_u8_gray: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(normalise_eye_image(img_u8_gray))[None, None].to(dev)
 
 
+@tracing.spanned("gs.gaze.centroid")
 def pupil_centroid(pred) -> np.ndarray:
     """Gaze estimate: the pupil class's centroid (x, y) in image
     coordinates of an (H, W) class map (tensor or array), or the image

@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from gaussian_splatting_with_eye_tracking_tpu_torch import tracing
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning as binning_ops
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, tile_blend
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops.projection import (
@@ -138,22 +139,25 @@ def fovea_step0(means3d, scales, quats, opacities, sh, sh_degree, cam: CameraPar
         if gaze_xy is None or gaze_radii is None:
             raise ValueError("predecimate requires gaze_xy and gaze_radii")
         gaze_decim = (gaze_xy, gaze_radii, tuple(int(s) for s in predecimate))
-    si = binning_ops.build_sorted_instances(
-        prep.means2d, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched,
-        prep.rect_min, prep.rect_max, prep.cull_thr, prep.depths, grid_x, grid_y,
-        max_instances, tile_px=TILE, gaze_decim=gaze_decim)
-    b = si.binning
-    if predecimate is not None:
-        levels = gaze_levels(torch.full((grid_x * grid_y,), 4, dtype=torch.int32, device=dev),
-                             grid_x, grid_y, gaze_xy, gaze_radii)
-    else:
-        levels = assign_levels(b.offsets[1:] - b.offsets[:-1], percentiles)
-        if gaze_xy is not None:
-            levels = gaze_levels(levels, grid_x, grid_y, gaze_xy, gaze_radii)
-    levels = levels.to(torch.int32)
+    with tracing.span("gs.binning"):
+        si = binning_ops.build_sorted_instances(
+            prep.means2d, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched,
+            prep.rect_min, prep.rect_max, prep.cull_thr, prep.depths, grid_x, grid_y,
+            max_instances, tile_px=TILE, gaze_decim=gaze_decim)
+        b = si.binning
+        feat_soa = blend.feat_soa_from_rows(si.feat_rows, blend.CHUNK)
+    with tracing.span("gs.levels"):
+        if predecimate is not None:
+            levels = gaze_levels(torch.full((grid_x * grid_y,), 4, dtype=torch.int32,
+                                            device=dev), grid_x, grid_y, gaze_xy, gaze_radii)
+        else:
+            levels = assign_levels(b.offsets[1:] - b.offsets[:-1], percentiles)
+            if gaze_xy is not None:
+                levels = gaze_levels(levels, grid_x, grid_y, gaze_xy, gaze_radii)
+        levels = levels.to(torch.int32)
     return AMRState(
         xy=prep.means2d, conics=prep.conics, rgb=prep.rgb, opacities=prep.opacities,
-        gauss_id=b.gauss_id, feat_soa=blend.feat_soa_from_rows(si.feat_rows, blend.CHUNK),
+        gauss_id=b.gauss_id, feat_soa=feat_soa,
         offsets=b.offsets, tile_levels=levels, tile_levels_last=torch.zeros_like(levels),
         color=torch.zeros((3, grid_y * TILE, grid_x * TILE), device=dev),
         final_t=torch.ones((grid_y * TILE, grid_x * TILE), device=dev),
@@ -256,34 +260,37 @@ def render_amr_fused(means3d, scales, quats, opacities, sh, sh_degree, cam: Came
                             max_instances=max_instances, active_mask=active_mask,
                             gaze_xy=gaze_xy, gaze_radii=gaze_radii, percentiles=percentiles,
                             predecimate=tuple(decimation) if predecimate else None)
-    sub = (TILE // 2) ** 2
-    lvlmap = _level_map(state.tile_levels, grid_x, grid_y)
     tiles_all = blend.blend_levels(
         state.feat_soa, state.offsets, state.offsets[1:] - state.offsets[:-1],
         state.tile_levels, grid_x, grid_y, decimation=decimation, scale_only=predecimate)
-    rounds_c, rounds_t = [], []
-    for r in range(4):
-        gate_px = lvlmap > r  # round r+1 rendered where level >= r+1
-        c, t_ = _subgrid_image(tiles_all[:, r * sub:(r + 1) * sub], grid_x, grid_y)
-        rounds_c.append(torch.where(gate_px[None], c, 0.0))
-        rounds_t.append(torch.where(gate_px, t_, 1.0))
-    if interpolate_image:
-        src_c = torch.where((lvlmap >= 3)[None], rounds_c[1], rounds_c[0])
-        src_t = torch.where(lvlmap >= 3, rounds_t[1], rounds_t[0])
+    with tracing.span("gs.assemble"):
+        sub = (TILE // 2) ** 2
+        lvlmap = _level_map(state.tile_levels, grid_x, grid_y)
+        rounds_c, rounds_t = [], []
         for r in range(4):
-            need = (r + 1) > lvlmap
-            rounds_c[r] = torch.where(need[None], src_c, rounds_c[r])
-            rounds_t[r] = torch.where(need, src_t, rounds_t[r])
-    # pixel (2yc+oy, 2xc+ox) comes from the round at offset (ox, oy):
-    # [oy][ox] = [[r1, r3], [r4, r2]]
-    hc, wc = lvlmap.shape
-    color = torch.stack([torch.stack([rounds_c[0], rounds_c[2]], -1),
-                         torch.stack([rounds_c[3], rounds_c[1]], -1)], 2).reshape(3, 2 * hc, 2 * wc)
-    final_t = torch.stack([torch.stack([rounds_t[0], rounds_t[2]], -1),
-                           torch.stack([rounds_t[3], rounds_t[1]], -1)], 1).reshape(2 * hc, 2 * wc)
-    state = state._replace(color=color, final_t=final_t, tile_levels_last=state.tile_levels)
-    out = color + final_t[None] * bg[:, None, None]
-    return out[:, :cam.height, :cam.width], state
+            gate_px = lvlmap > r  # round r+1 rendered where level >= r+1
+            c, t_ = _subgrid_image(tiles_all[:, r * sub:(r + 1) * sub], grid_x, grid_y)
+            rounds_c.append(torch.where(gate_px[None], c, 0.0))
+            rounds_t.append(torch.where(gate_px, t_, 1.0))
+        if interpolate_image:
+            src_c = torch.where((lvlmap >= 3)[None], rounds_c[1], rounds_c[0])
+            src_t = torch.where(lvlmap >= 3, rounds_t[1], rounds_t[0])
+            for r in range(4):
+                need = (r + 1) > lvlmap
+                rounds_c[r] = torch.where(need[None], src_c, rounds_c[r])
+                rounds_t[r] = torch.where(need, src_t, rounds_t[r])
+        # pixel (2yc+oy, 2xc+ox) comes from the round at offset (ox, oy):
+        # [oy][ox] = [[r1, r3], [r4, r2]]
+        hc, wc = lvlmap.shape
+        color = torch.stack([torch.stack([rounds_c[0], rounds_c[2]], -1),
+                             torch.stack([rounds_c[3], rounds_c[1]], -1)],
+                            2).reshape(3, 2 * hc, 2 * wc)
+        final_t = torch.stack([torch.stack([rounds_t[0], rounds_t[2]], -1),
+                               torch.stack([rounds_t[3], rounds_t[1]], -1)],
+                              1).reshape(2 * hc, 2 * wc)
+        state = state._replace(color=color, final_t=final_t, tile_levels_last=state.tile_levels)
+        out = color + final_t[None] * bg[:, None, None]
+        return out[:, :cam.height, :cam.width], state
 
 
 def render_amr(means3d, scales, quats, opacities, sh, sh_degree, cam: CameraParams, bg, *,

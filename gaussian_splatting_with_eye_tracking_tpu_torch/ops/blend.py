@@ -53,7 +53,7 @@ import math
 
 import torch
 
-from gaussian_splatting_with_eye_tracking_tpu_torch import backend
+from gaussian_splatting_with_eye_tracking_tpu_torch import backend, tracing
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning as binning_ops
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import segsum
 
@@ -319,6 +319,7 @@ def _stream_plain(feat_soa, ranges, px, py, chunk, out, t, step=1, scale_only=Fa
     out[t, :pixels, 5] = log_t
 
 
+@tracing.spanned("gs.composite")
 def blend_fwd(feat_soa: torch.Tensor, offsets: torch.Tensor, grid_x: int,
               grid_y: int) -> torch.Tensor:
     """Forward tile compositor: feat_soa (FEAT, K') float32 with K' a
@@ -412,6 +413,7 @@ def _check_amr_inputs(feat_soa, offsets, counts, num_tiles, levels=None):
             raise ValueError(f"{name} shape {tuple(x.shape)} != ({num_tiles},)")
 
 
+@tracing.spanned("gs.composite")
 def blend_round(feat_soa: torch.Tensor, offsets: torch.Tensor, grid_x: int, grid_y: int,
                 *, offx: int, offy: int, counts_override: torch.Tensor | None = None,
                 order: torch.Tensor | None = None, split: int = 1) -> torch.Tensor:
@@ -450,6 +452,7 @@ def blend_round(feat_soa: torch.Tensor, offsets: torch.Tensor, grid_x: int, grid
     return out
 
 
+@tracing.spanned("gs.composite")
 def blend_levels(feat_soa: torch.Tensor, offsets: torch.Tensor, counts: torch.Tensor,
                  levels: torch.Tensor, grid_x: int, grid_y: int, *,
                  decimation=(1, 1, 1, 1), scale_only: bool = False) -> torch.Tensor:
@@ -659,15 +662,16 @@ class Splat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xy, conics, rgb, opacities, tiles_touched, rect_min, rect_max,
                 cull_thr, depths, grid_x, grid_y, max_instances, max_live, lane_offset=None):
-        si = binning_ops.build_sorted_instances(
-            xy, conics, rgb, opacities, tiles_touched, rect_min, rect_max,
-            cull_thr, depths, grid_x, grid_y, max_instances, tile_px=TILE,
-            max_live=max_live,
-        )
-        b = si.binning
-        lead = 0 if lane_offset is None else lane_offset(b.num_instances)
-        feat_soa = feat_soa_from_rows(si.feat_rows, CHUNK, lead)
-        offsets = b.offsets + lead if lead else b.offsets
+        with tracing.span("gs.binning"):
+            si = binning_ops.build_sorted_instances(
+                xy, conics, rgb, opacities, tiles_touched, rect_min, rect_max,
+                cull_thr, depths, grid_x, grid_y, max_instances, tile_px=TILE,
+                max_live=max_live,
+            )
+            b = si.binning
+            lead = 0 if lane_offset is None else lane_offset(b.num_instances)
+            feat_soa = feat_soa_from_rows(si.feat_rows, CHUNK, lead)
+            offsets = b.offsets + lead if lead else b.offsets
         tiles = blend_fwd(feat_soa, offsets, grid_x, grid_y)
         ctx.save_for_backward(feat_soa, offsets, tiles, b.gauss_start,
                               b.gauss_count, si.id_pos)
@@ -687,6 +691,7 @@ class Splat(torch.autograd.Function):
                 None, None, None, None, None, None, None, None, None, None)
 
 
+@tracing.spanned("gs.assemble")
 def assemble_tiles(tiles, grid_x, grid_y, tile, bg):
     """(T, P, OUTC) tiles -> color (3, H', W') with the background added
     through final_T, and final_t (H', W'), H' = grid_y*tile. Port of

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from gaussian_splatting_with_eye_tracking_tpu_torch import tracing
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import sh as sh_ops
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import transforms as tf
 
@@ -64,6 +65,7 @@ def _to_int32(x: torch.Tensor) -> torch.Tensor:
     return x.clamp(-_INT_CAST_LIMIT, _INT_CAST_LIMIT).to(torch.int32)
 
 
+@tracing.spanned("gs.preprocess")
 def preprocess(
     means3d: torch.Tensor,
     scales: torch.Tensor,
@@ -79,7 +81,12 @@ def preprocess(
     """means3d (N,3), scales (N,3) activated, quats (N,4), opacities (N,)
     activated, sh (N, 3, K). ``active_mask`` (N,) bool kills padded slots.
     The camera's tan(fov) values enter as float32 scalars, as in the JAX
-    package's ``preprocess``."""
+    package's ``preprocess``. Counts ``gs.preprocess.rows`` and
+    ``gs.preprocess.active`` while tracing is on."""
+    if tracing.is_on():
+        n = means3d.shape[0]
+        tracing.count("gs.preprocess.rows", n)
+        tracing.count("gs.preprocess.active", n if active_mask is None else active_mask.sum())
     dev = means3d.device
     grid_x = (cam.width + tile - 1) // tile
     grid_y = (cam.height + tile - 1) // tile

@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from gaussian_splatting_with_eye_tracking_tpu_torch import tracing
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import rasterize as rast
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops.projection import CameraParams
@@ -26,6 +27,7 @@ def sh_band_mask(sh_degree: int, max_sh_degree: int, device=None) -> torch.Tenso
     return band <= sh_degree
 
 
+@tracing.spanned("gs.activate")
 def activated(state: gm.GaussianModelState, max_sh_degree: int) -> tuple:
     """(means, scales, rotations, opacities, SH with the bands above the
     state's active degree zeroed): the rasterizer's inputs."""
@@ -35,6 +37,7 @@ def activated(state: gm.GaussianModelState, max_sh_degree: int) -> tuple:
     return p.xyz, gm.get_scaling(p), p.rotation, gm.get_opacity(p), sh
 
 
+@tracing.spanned("gs.render")
 def render(
     cam: CameraParams,
     state: gm.GaussianModelState,

@@ -28,7 +28,7 @@ from argparse import ArgumentParser
 import numpy as np
 import torch
 
-from gaussian_splatting_with_eye_tracking_tpu_torch import backend, renderer, train_lib
+from gaussian_splatting_with_eye_tracking_tpu_torch import backend, renderer, tracing, train_lib
 from gaussian_splatting_with_eye_tracking_tpu_torch.config import (
     ModelConfig,
     add_config_args,
@@ -47,6 +47,7 @@ from gaussian_splatting_with_eye_tracking_tpu_torch.utils.image_utils import (
 )
 
 
+@tracing.spanned("gs.gaze")
 def estimate_gaze(eye_u8: np.ndarray, weights=None, device=None):
     """uint8 grayscale eye image (H, W) -> (gaze_uv in [0, 1]^2 as a numpy
     (x, y), class map (H', W') on the device). The image is cropped to
@@ -62,13 +63,14 @@ def estimate_gaze(eye_u8: np.ndarray, weights=None, device=None):
     eye = eye[:h, :w]
     model = weights if isinstance(weights, ritnet.DenseNet2D) else ritnet.load_pretrained(
         weights, device=dev)
-    with torch.no_grad():
-        logits = model(ritnet.preprocess_eye_image(eye, device=dev))
-    pred = ritnet.get_predictions(logits)[0]
+    x = ritnet.preprocess_eye_image(eye, device=dev)
+    with tracing.span("gs.gaze.net"), torch.no_grad():
+        pred = ritnet.get_predictions(model(x))[0]
     gaze_px = ritnet.pupil_centroid(pred)
     return gaze_px / np.array([w, h]), pred
 
 
+@tracing.spanned("gs.fovea")
 def foveated_view(state: gm.GaussianModelState, cam: CameraParams, bg: torch.Tensor,
                   gaze_uv, max_sh_degree: int, *, radii, decimation=(1, 1, 1, 1),
                   predecimate: bool = False, fused: bool = True,

@@ -17,7 +17,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from gaussian_splatting_with_eye_tracking_tpu_torch import backend, renderer
+from gaussian_splatting_with_eye_tracking_tpu_torch import backend, renderer, tracing
 from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import ssim as ssim_ops
@@ -76,13 +76,15 @@ def make_train_step(tx: gm.Adam, opt: OptimizationConfig, max_sh_degree: int,
             means2d_offset=offset, max_instances=max_instances, max_live=max_live,
             impl=impl, debug=debug)
         mark(events, "forward")
-        l1 = ssim_ops.l1_loss(out.color, gt)
-        loss = (1.0 - opt.lambda_dssim) * l1 + opt.lambda_dssim * (
-            1.0 - ssim_ops.ssim(out.color, gt))
+        with tracing.span("gs.loss"):
+            l1 = ssim_ops.l1_loss(out.color, gt)
+            loss = (1.0 - opt.lambda_dssim) * l1 + opt.lambda_dssim * (
+                1.0 - ssim_ops.ssim(out.color, gt))
         mark(events, "loss")
-        *g_params, g_offset = torch.autograd.grad(loss, [*params, offset])
+        with tracing.span("gs.backward"):
+            *g_params, g_offset = torch.autograd.grad(loss, [*params, offset])
         mark(events, "backward")
-        with torch.no_grad():
+        with tracing.span("gs.optimizer"), torch.no_grad():
             new_params, opt_state = tx.update(gm.GaussianParams(*g_params),
                                               state.opt_state, state.params)
             state = state._replace(params=new_params, opt_state=opt_state)

@@ -1,0 +1,9 @@
+"""Device milliseconds per traced view of the operations launched inside
+the program's ``gs.binning`` span, within ``gs.render``: pair
+enumeration, the ellipse cull, the sort, K1 and the chunk layout."""
+
+from gsbench import spans
+
+
+def read(run):
+    return spans.span_device_ms(run, "gs.binning", within="gs.render")

@@ -37,8 +37,9 @@ CONV_KEYS = ("conv", "gemm", "cudnn", "xmma", "wgrad", "dgrad", "winograd", "fft
 
 def profiled(fn, reps=1):
     """(wall us, {kernel name: device us}) of ``reps`` calls of ``fn``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from gaussian_splatting_with_eye_tracking_tpu_torch import tracing
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -48,9 +49,8 @@ def profiled(fn, reps=1):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_kernel = defaultdict(float)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.key] += e.time_range.elapsed_us()
+    for e in tracing.device_ops(prof.events()):  # not the spans' device-side ranges
+        by_kernel[e.key] += e.time_range.elapsed_us()
     return wall_us, by_kernel
 
 

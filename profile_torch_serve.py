@@ -34,7 +34,7 @@ def cuda_ms(fn):
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serve: no CUDA device")
-    from gaussian_splatting_with_eye_tracking_tpu_torch import backend, renderer, train_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch import backend, renderer, tracing, train_lib
     from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
     from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning, blend, expand
     from gaussian_splatting_with_eye_tracking_tpu_torch.ops import projection
@@ -96,12 +96,13 @@ def main():
             render(state, *train_lib.camera_arrays(cam), bg)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device busy time: the kernels' own intervals; per-op device time:
-    # the host ops' self device time (the kernels each launched directly)
-    device_us = sum(e.time_range.elapsed_us() for e in prof.events()
-                    if e.device_type == DeviceType.CUDA)
+    # device busy time: the kernels' own intervals, not the program's
+    # spans' device-side ranges over them; per-op device time: the host
+    # ops' self device time (the kernels each launched directly)
+    device_us = sum(e.time_range.elapsed_us() for e in tracing.device_ops(prof.events()))
     ops = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-           if e.device_type == DeviceType.CPU and e.self_device_time_total > 0]
+           if e.device_type == DeviceType.CPU and not e.is_user_annotation
+           and e.self_device_time_total > 0]
     ops.sort(key=lambda kv: -kv[1])
     print(json.dumps({"profile": {
         "requests": cs.REPS,

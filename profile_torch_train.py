@@ -40,7 +40,7 @@ import chip_smoke as cs
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_train: no CUDA device")
-    from gaussian_splatting_with_eye_tracking_tpu_torch import backend, train_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch import backend, tracing, train_lib
     from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
     from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
     from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, segsum
@@ -121,7 +121,6 @@ def main():
         "instances": int(counts.sum()), "mean_nonempty": float(live.mean()),
         "p50_p90_p99_p999": q, "max": int(counts.max())}}), flush=True)
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -132,9 +131,8 @@ def main():
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     by_kernel = defaultdict(float)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[e.key] += e.time_range.elapsed_us()
+    for e in tracing.device_ops(prof.events()):  # not the spans' device-side ranges
+        by_kernel[e.key] += e.time_range.elapsed_us()
     device_us = sum(by_kernel.values())
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:20]
     print(json.dumps({"profile": {
