@@ -25,7 +25,11 @@ Phases (any failure raises and the script exits non-zero):
  5. on the front view's real inputs, hold each kernel against its plain
     PyTorch version (expand bit-exact; blend rgb/final_T within 1e-3 and
     chunks_done equal on all but 0.1% of tiles, and a second blend launch
-    bit-identical to the first); the index expand (K6,
+    bit-identical to the first); the preprocess kernel (K7) at the served
+    shapes (the 300k scene; 1M of its gaussians in 4,194,304 slots, the
+    rest inert and inactive): radii, tiles and rects equal on every slot,
+    culled slots' opacity and colour 0, the floats within ``PREP_TOL``,
+    timed with its plain version; the index expand (K6,
     which no path of the package calls) along the segment expand's own
     slot -> column map, bit-exact against its plain version and against
     the segment expand's output;
@@ -254,6 +258,7 @@ FP32_FLOPS_PER_S = 67e12
 SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 REPLACES = {
+    "preprocess": "none (the JAX package's preprocess is column math that XLA fuses)",
     "expand_seg": "gaussian_splatting_with_eye_tracking_tpu/ops/expand.py:74",
     "expand_rows": "gaussian_splatting_with_eye_tracking_tpu/ops/expand.py:35",
     "blend_fwd": "gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py:563",
@@ -337,6 +342,106 @@ def cuda_ms(fn, reps=REPS, warmup=1, batch=1):
 
 
 GRAD_NAMES = ("means", "scales", "quats", "opacities", "sh", "bg", "means2d_offset")
+
+PREP_TOL = 1e-6  # K7 against preprocess_plain: each float's gap over max(1, |plain|)
+# K7's timed shapes: (gaussians, slots, seed): the 300k scene, and a 1M
+# scene's 4,194,304 slots (create_from_points' capacity for 1M points)
+PREP_SHAPES = {"300k": (N, N, 0), "4M_1M": (1_000_000, 1 << 22, 2)}
+
+
+def preprocess_inputs(n, slots, seed, dev):
+    """bench.py's scene of ``n`` gaussians (from ``seed``) in ``slots``
+    slots, the rest ``_pad_params``' inert fills and inactive, activated as
+    the renderer activates them: ((means, scales, quats, opacities, sh),
+    the active mask or None)."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
+
+    raw = raw_params(*make_scene(n, seed=seed))
+    p = gm.GaussianParams(**{k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(dev)
+                             for k, v in raw.items()})
+    active = None
+    if slots > n:
+        p = gm._pad_params(p, slots)
+        active = torch.arange(slots, device=p.xyz.device) < n
+    return (p.xyz, gm.get_scaling(p), p.rotation, gm.get_opacity(p), gm.get_sh(p)), active
+
+
+def preprocess_mismatch(got, want) -> dict:
+    """K7's record (``got``) against ``preprocess_plain``'s (``want``):
+    the slots whose radii, tiles_touched, rect_min or rect_max differ; the
+    culled slots (plain radius 0) with an opacity or a colour that is not
+    0; each float field's largest gap over max(1, |plain|), over every
+    slot (``rgb``: over the drawn ones; NaN on both sides is no gap, on
+    one side an infinite one)."""
+    drawn = want.radii > 0
+    out = {}
+    for name in ("radii", "tiles_touched", "rect_min", "rect_max"):
+        a, b = getattr(got, name), getattr(want, name)
+        out[name] = int((a != b).reshape(a.shape[0], -1).any(-1).sum())
+    out["culled_opacity"] = int((got.opacities[~drawn] != 0).sum())
+    out["culled_rgb"] = int((got.rgb[~drawn] != 0).any(-1).sum())
+    for name in ("means2d", "depths", "conics", "rgb", "opacities", "cull_thr"):
+        a, b = getattr(got, name), getattr(want, name)
+        if name == "rgb":
+            a, b = a[drawn], b[drawn]
+        gap = (a - b).abs() / b.abs().clamp_min(1.0)
+        gap = torch.where(torch.isnan(a) & torch.isnan(b), 0.0, gap)
+        out[name] = float(torch.nan_to_num(gap, nan=math.inf).max()) if gap.numel() else 0.0
+    return out
+
+
+def preprocess_failures(mismatch: dict) -> list:
+    """The entries of ``preprocess_mismatch`` past their gate: any count,
+    and a float gap above ``PREP_TOL``."""
+    return [k for k, v in mismatch.items()
+            if (v > PREP_TOL if isinstance(v, float) else v != 0)]
+
+
+def preprocess_phase(dev):
+    """Phase 5's K7 check and timing at ``PREP_SHAPES`` (a yawed and
+    pitched view): per shape the mismatch against the plain version, the
+    drawn slots, the wrapper's ms, the kernel alone (20 launches back to
+    back into the outputs of the first), the plain version's ms and the
+    byte bound: every slot's mean, scales, quaternion, opacity (and mask)
+    read and its 68-byte record written, the drawn slots' SH rows read."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import projection
+
+    cam = view_request(6.0, -4.0).params(device=dev)
+    out = {}
+    for tag, (n, slots, seed) in PREP_SHAPES.items():
+        g, active = preprocess_inputs(n, slots, seed, dev)
+        args, kw = (*g, 3, cam), dict(tile=32, active_mask=active)
+        launched = []
+        kernel = projection.PREPROCESS
+        projection.PREPROCESS = lambda *a: (launched.append(a), kernel(*a))
+        try:
+            with torch.no_grad():
+                got = projection.preprocess_kernel(*args, **kw)
+        finally:
+            projection.PREPROCESS = kernel
+        with torch.no_grad():
+            want = projection.preprocess_plain(*args, **kw)
+            torch.cuda.synchronize()
+            mismatch = preprocess_mismatch(got, want)
+            if preprocess_failures(mismatch):
+                raise AssertionError(f"preprocess {tag}: K7 vs plain {mismatch}")
+            ms = cuda_ms(lambda: projection.preprocess_kernel(*args, **kw))
+            plain_ms = cuda_ms(lambda: projection.preprocess_plain(*args, **kw))
+            kernel_ms = cuda_ms(lambda: kernel(*launched[0]), batch=20)
+            if preprocess_failures(preprocess_mismatch(got, want)):
+                raise AssertionError(f"preprocess {tag}: K7 launched alone differs")
+        drawn = int((want.radii > 0).sum())
+        k = g[4].shape[-1]
+        nbytes = slots * (44 + (active is not None) + 68) + drawn * 4 * 3 * k
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out[tag] = {"slots": slots, "active": n, "drawn": drawn, "mismatch": mismatch,
+                    "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "mbytes": nbytes / 1e6}
+        log(f"preprocess {tag}: {slots} slots, {n} active, {drawn} drawn; K7 vs plain "
+            f"{json.dumps(mismatch)}; {ms:.4f} ms, the kernel alone {kernel_ms:.4f} ms "
+            f"({100 * bound / kernel_ms:.1f} % of the bound {bound:.4f} ms, "
+            f"{nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms")
+    return out
 
 
 def ptxas_report(backend, stem):
@@ -2180,12 +2285,14 @@ class plain_route:
     launching no kernel."""
 
     def __enter__(self):
-        from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, expand
+        from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, expand, projection
 
         self.saved = [(expand, "expand_rows_by_segments"), (blend, "blend_fwd"),
-                      (blend, "blend_round"), (blend, "blend_levels")]
+                      (blend, "blend_round"), (blend, "blend_levels"),
+                      (projection, "preprocess_kernel")]
         self.saved = [(m, name, getattr(m, name)) for m, name in self.saved]
         expand.expand_rows_by_segments = expand.expand_rows_by_segments_plain
+        projection.preprocess_kernel = projection.preprocess_plain
         blend.blend_fwd = blend.blend_fwd_plain
 
         def round_plain(*a, offx, offy, counts_override=None, order=None, split=1):
@@ -2495,7 +2602,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {stem}: {line.strip()}")
     build = {stem: ptxas_report(backend, stem)
-             for stem in ("blend_fwd", "blend_bwd", "blend_amr", "segsum")}
+             for stem in ("blend_fwd", "blend_bwd", "blend_amr", "segsum", "preprocess")}
     log(f"redesigned kernels: {json.dumps(build)}")
 
     # -- 3. the model, through a PLY snapshot --------------------------------
@@ -2540,7 +2647,7 @@ def main() -> int:
     launches = {kern.name: kern.launches for kern in backend.kernels()}
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     log(f"served {len(cams)} requests; launches {launches}; peak memory {peak_mb:.0f} MiB")
-    for name in ("expand_seg", "blend_fwd"):
+    for name in ("preprocess", "expand_seg", "blend_fwd"):
         if launches[name] < len(cams):
             raise AssertionError(f"{name} ran {launches[name]} times for {len(cams)} requests")
     if launches["blend_bwd"] or launches["segsum"]:
@@ -2616,6 +2723,8 @@ def main() -> int:
         chunks = k2[:, 0, 4].to(torch.float64)
         if not torch.equal(k2[:, :, 4], k2[:, :1, 4].expand(-1, 1024)):
             raise AssertionError("chunks_done is not tile-uniform")
+
+        prep_k7 = preprocess_phase(dev)
 
         # -- 6. timings ------------------------------------------------------
         view_ms = [cuda_ms(lambda c=c: render(state, *train_lib.camera_arrays(c.params()),
@@ -2785,6 +2894,10 @@ def main() -> int:
 
     src = "gaussian_splatting_with_eye_tracking_tpu_torch/csrc/{}.cu"
     kernels = [
+        {"name": "preprocess", "route": "cuda", "source": src.format("preprocess"),
+         "replaces": REPLACES["preprocess"], "launches": launches["preprocess"],
+         **{k: prep_k7["300k"][k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms")},
+         "bound_by": "bytes", "library_ms": None, "shapes": prep_k7, **build["preprocess"]},
         {"name": "expand_seg", "route": "cuda", "source": src.format("expand_seg"),
          "replaces": REPLACES["expand_seg"], "launches": launches["expand_seg"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,

@@ -42,6 +42,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+# flags of one source on top of NVCC_FLAGS: K7 rounds every product and
+# sum on its own, as the plain PyTorch version's elementwise kernels do
+SOURCE_FLAGS = {"preprocess": ["-fmad=false"]}
 
 _LIBS: dict[str, Path] = {}
 _KERNELS: list["CudaKernel"] = []
@@ -85,9 +88,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _flags(src: Path) -> list[str]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(src.stem, [])
+
+
 def _lib_path(src: Path) -> Path:
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(_flags(src)).encode())
     return BUILD_DIR / f"{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
@@ -104,7 +111,7 @@ def build_kernels() -> dict[str, float]:
             _LIBS[src.stem] = out
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *_flags(src), "-o", str(tmp), str(src)]
         jobs[src.stem] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
             tmp, out, time.perf_counter())

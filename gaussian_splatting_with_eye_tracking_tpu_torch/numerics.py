@@ -62,7 +62,7 @@ from gaussian_splatting_with_eye_tracking_tpu_torch.models import checkpoint as 
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning, blend, segsum
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import rasterize as rast
-from gaussian_splatting_with_eye_tracking_tpu_torch.ops.projection import preprocess
+from gaussian_splatting_with_eye_tracking_tpu_torch.ops.projection import preprocess_plain
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import ssim as ssim_ops
 from gaussian_splatting_with_eye_tracking_tpu_torch.scene import Scene
 
@@ -322,8 +322,8 @@ def cull_terms(opacity: float, scale, device=None) -> dict:
     largest conditioning kappa = ac / det of a visible conic (no cull
     above 1e5), and the largest screen radius."""
     (means, scales, quats, op, sh), cam, _ = degenerate_inputs(opacity, scale, device)
-    with torch.no_grad():
-        prep = preprocess(means, scales, quats, op, sh, 1, cam)
+    with torch.no_grad():  # the plain record, as degenerate_grads' differentiable call has it
+        prep = preprocess_plain(means, scales, quats, op, sh, 1, cam)
     seen = prep.radii > 0
     a, b, c = (prep.conics[seen, i].double() for i in range(3))
     tau = float(torch.log(prep.opacities[seen].double()).max()) - math.log(blend.ALPHA_MIN) + 1e-4
@@ -399,7 +399,8 @@ def reduce_route_records(gaussians, cam, target, sh_degree: int):
     means, scales, quats, op, sh = gaussians
     gx, gy = -(-cam.width // blend.TILE), -(-cam.height // blend.TILE)
     with torch.no_grad():
-        prep = preprocess(means, scales, quats, op, sh, sh_degree, cam, tile=blend.TILE)
+        # the train step's record: its preprocess is the differentiable plain one
+        prep = preprocess_plain(means, scales, quats, op, sh, sh_degree, cam, tile=blend.TILE)
         si = binning.build_sorted_instances(
             prep.means2d, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched,
             prep.rect_min, prep.rect_max, prep.cull_thr, prep.depths, gx, gy, GRAD_CAPACITY,

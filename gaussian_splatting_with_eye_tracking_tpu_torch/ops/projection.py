@@ -4,23 +4,38 @@ tile rects.
 Port of ``gaussian_splatting_with_eye_tracking_tpu/ops/projection.py``:
 ``CameraParams``, ``Preprocessed`` and the forward of
 ``_preprocess_autodiff`` (which is also the forward of the JAX
-``preprocess``'s hand-VJP path). Vectorized over all N gaussians; no
-kernel (elementwise column math). Its gradient is torch autograd through
-this forward, which the JAX package cross-checks its hand VJP against
-(``projection.py:219-231`` there). The binning-only quantities carry no
-gradient, as in JAX: ``cull_thr`` and the opacity-aware extents are
-detached (JAX ``stop_gradient``), so the radius chain, whose
-``sqrt(clamp(..., 0))`` would turn a zero cotangent into 0 * inf, is never
-differentiated.
+``preprocess``'s hand-VJP path). ``preprocess`` takes one of two paths, as
+its inputs show:
+
+- a call that may need a gradient (grad mode on and an input that
+  ``requires_grad``: the train steps) runs ``preprocess_plain``, column
+  math over all N gaussians whose gradient is torch autograd through this
+  forward, which the JAX package cross-checks its hand VJP against
+  (``projection.py:219-231`` there). The binning-only quantities carry no
+  gradient, as in JAX: ``cull_thr`` and the opacity-aware extents are
+  detached (JAX ``stop_gradient``), so the radius chain, whose
+  ``sqrt(clamp(..., 0))`` would turn a zero cotangent into 0 * inf, is
+  never differentiated;
+- any other call launches the hand-written kernel K7
+  (``csrc/preprocess.cu``, ``preprocess_kernel``) on CUDA tensors, one
+  thread per slot, and runs ``preprocess_plain`` on CPU tensors.
+
+K7 writes the plain record as the plain version computes it on the card,
+each float rounded alike (so the integer fields, radii, tiles_touched and
+the rects, are equal); one field differs by design: a culled slot's
+``rgb`` is 0 (its SH row is never read). Nothing reads a culled slot's colour:
+its ``tiles_touched`` is 0, so binning's ``compact_table`` marks it dead
+and sorts it past the live ones, and no instance of it is enumerated.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
-from gaussian_splatting_with_eye_tracking_tpu_torch import tracing
+from gaussian_splatting_with_eye_tracking_tpu_torch import backend, tracing
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import sh as sh_ops
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import transforms as tf
 
@@ -65,6 +80,18 @@ def _to_int32(x: torch.Tensor) -> torch.Tensor:
     return x.clamp(-_INT_CAST_LIMIT, _INT_CAST_LIMIT).to(torch.int32)
 
 
+PREPROCESS = backend.CudaKernel(
+    "preprocess", "preprocess", "preprocess_launch",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_void_p] * 3
+    + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float]
+    + [ctypes.c_void_p] * 11,
+)
+SH_COEFFS = (1, 4, 9, 16)  # SH coefficients per channel K7 takes
+_INPUTS = ("means3d", "scales", "quats", "opacities", "sh", "viewmatrix", "projmatrix",
+           "campos")
+
+
 @tracing.spanned("gs.preprocess")
 def preprocess(
     means3d: torch.Tensor,
@@ -81,12 +108,94 @@ def preprocess(
     """means3d (N,3), scales (N,3) activated, quats (N,4), opacities (N,)
     activated, sh (N, 3, K). ``active_mask`` (N,) bool kills padded slots.
     The camera's tan(fov) values enter as float32 scalars, as in the JAX
-    package's ``preprocess``. Counts ``gs.preprocess.rows`` and
-    ``gs.preprocess.active`` while tracing is on."""
+    package's ``preprocess``.
+
+    ``preprocess_plain`` where a gradient may be taken or the tensors are
+    on the CPU; otherwise K7 (``preprocess_kernel``), which raises on
+    inputs it does not take. Counts ``gs.preprocess.rows`` and
+    ``gs.preprocess.active`` while tracing is on, and
+    ``gs.preprocess.kernel`` (the rows given to K7)."""
+    n = means3d.shape[0]
     if tracing.is_on():
-        n = means3d.shape[0]
         tracing.count("gs.preprocess.rows", n)
         tracing.count("gs.preprocess.active", n if active_mask is None else active_mask.sum())
+    args = (means3d, scales, quats, opacities, sh, sh_degree, cam, tile, active_mask,
+            scale_modifier)
+    grads = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (means3d, scales, quats, opacities, sh, *cam[:3]))
+    if grads or not means3d.is_cuda:
+        return preprocess_plain(*args)
+    tracing.count("gs.preprocess.kernel", n)
+    return preprocess_kernel(*args)
+
+
+def preprocess_kernel(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    opacities: torch.Tensor,
+    sh: torch.Tensor,
+    sh_degree: int,
+    cam: CameraParams,
+    tile: int = 32,
+    active_mask: Optional[torch.Tensor] = None,
+    scale_modifier: float = 1.0,
+) -> Preprocessed:
+    """``preprocess_plain``'s record from one launch of K7 on CUDA float32
+    tensors, with no gradient. Takes K in ``SH_COEFFS`` and ``sh_degree``
+    <= 3 with (sh_degree + 1)^2 <= K; the camera's matrices stay on the
+    card. A culled slot (radius 0) gets ``rgb`` 0 and opacity 0; every
+    other field as the plain version computes it."""
+    n, k = means3d.shape[0], sh.shape[-1]
+    if not (0 <= sh_degree <= 3 and k in SH_COEFFS and (sh_degree + 1) ** 2 <= k):
+        raise ValueError(f"preprocess: sh_degree {sh_degree} with {k} SH coefficients")
+    ins = [t.contiguous() for t in (means3d, scales, quats, opacities, sh, *cam[:3])]
+    shapes = ((n, 3), (n, 3), (n, 4), (n,), (n, 3, k), (4, 4), (4, 4), (3,))
+    for name, t, shape in zip(_INPUTS, ins, shapes):
+        if t.shape != shape or t.dtype != torch.float32 or not t.is_cuda:
+            raise ValueError(f"preprocess: {name} must be a CUDA float32 tensor of shape "
+                             f"{shape}, not {t.dtype} {tuple(t.shape)} on {t.device}")
+    backend.check_aligned("sh", ins[4])
+    if active_mask is not None:
+        active_mask = active_mask.contiguous()
+        if active_mask.shape != (n,) or active_mask.dtype != torch.bool or not active_mask.is_cuda:
+            raise ValueError("preprocess: active_mask must be a CUDA bool tensor of shape "
+                             f"{(n,)}, not {active_mask.dtype} {tuple(active_mask.shape)}")
+    dev, f32, i32 = means3d.device, torch.float32, torch.int32
+    prep = Preprocessed(
+        means2d=torch.empty((n, 2), dtype=f32, device=dev),
+        depths=torch.empty(n, dtype=f32, device=dev),
+        conics=torch.empty((n, 3), dtype=f32, device=dev),
+        rgb=torch.empty((n, 3), dtype=f32, device=dev),
+        opacities=torch.empty(n, dtype=f32, device=dev),
+        radii=torch.empty(n, dtype=i32, device=dev),
+        tiles_touched=torch.empty(n, dtype=i32, device=dev),
+        rect_min=torch.empty((n, 2), dtype=i32, device=dev),
+        rect_max=torch.empty((n, 2), dtype=i32, device=dev),
+        cull_thr=torch.empty(n, dtype=f32, device=dev))
+    if n:
+        ptr = [t.data_ptr() for t in ins]
+        PREPROCESS(*ptr[:5], None if active_mask is None else active_mask.data_ptr(),
+                   n, k, sh_degree, *ptr[5:], float(cam.tan_fovx), float(cam.tan_fovy),
+                   cam.width, cam.height, tile, float(scale_modifier),
+                   *[t.data_ptr() for t in prep], backend.stream_ptr(means3d))
+    return prep
+
+
+def preprocess_plain(
+    means3d: torch.Tensor,
+    scales: torch.Tensor,
+    quats: torch.Tensor,
+    opacities: torch.Tensor,
+    sh: torch.Tensor,
+    sh_degree: int,
+    cam: CameraParams,
+    tile: int = 32,
+    active_mask: Optional[torch.Tensor] = None,
+    scale_modifier: float = 1.0,
+) -> Preprocessed:
+    """``preprocess``'s plain PyTorch version, on any device and
+    differentiable (see the module's docstring)."""
     dev = means3d.device
     grid_x = (cam.width + tile - 1) // tile
     grid_y = (cam.height + tile - 1) // tile
@@ -99,11 +208,13 @@ def preprocess(
     if active_mask is not None:
         visible = visible & active_mask
 
-    # projection to NDC, then pixels
-    p_hom = means3d @ cam.projmatrix[:3, :3].T + cam.projmatrix[:3, 3]
-    p_w = means3d @ cam.projmatrix[3, :3] + cam.projmatrix[3, 3]
-    p_w = torch.where(visible, p_w + 1e-7, torch.ones_like(p_w))
-    p_proj = p_hom / p_w[:, None]
+    # projection to NDC, then pixels. Clip x, y and w come out of one
+    # product, whose sums the card's BLAS takes as a chain of FMAs in k
+    # order (K7 takes them so); a product by the w row alone went to a
+    # matrix-vector kernel whose order changes with N
+    p_hom = means3d @ cam.projmatrix[:, :3].T + cam.projmatrix[:, 3]
+    p_w = torch.where(visible, p_hom[:, 3] + 1e-7, torch.ones_like(p_hom[:, 3]))
+    p_proj = p_hom[:, :2] / p_w[:, None]
     mean_x = tf.ndc_to_pix(p_proj[:, 0], cam.width)
     mean_y = tf.ndc_to_pix(p_proj[:, 1], cam.height)
     means2d = torch.stack([mean_x, mean_y], dim=-1)

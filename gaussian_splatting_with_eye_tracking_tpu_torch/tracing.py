@@ -44,8 +44,10 @@ The spans, each inside its parent:
   ``gs.loss``, ``gs.backward`` and ``gs.optimizer`` (Adam, the
   densification statistics, the step's aux).
 
-The counters: ``gs.preprocess.rows`` (the rows ``preprocess`` was given)
-and ``gs.preprocess.active`` (the active ones among them).
+The counters: ``gs.preprocess.rows`` (the rows ``preprocess`` was given),
+``gs.preprocess.active`` (the active ones among them) and
+``gs.preprocess.kernel`` (the rows that went through its hand-written
+kernel, K7; none on the CPU or where a gradient may be taken).
 """
 
 from __future__ import annotations

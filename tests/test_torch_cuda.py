@@ -20,7 +20,14 @@ within 1e-3 of their largest magnitude); the compositors on a frame
 whose sides are not multiples of 32, and the frame-rate sweep's capacity
 regrow on the card. The compositors keep exactly the plain versions'
 pairs at the 1/255 gate, on inputs where an FMA-contracted power would
-turn some (checked on the host)."""
+turn some (checked on the host). The preprocess kernel (K7) against
+``preprocess_plain`` on the card (``chip_smoke.preprocess_mismatch``):
+radii, tiles_touched and the rects equal on every slot, a culled slot's
+opacity and colour 0, the floats within ``chip_smoke.PREP_TOL`` of
+max(1, |plain|), on the 300k scene, a capacity-padded state, SH degrees
+0-3, a frame whose sides are not multiples of 32 and edge inputs (the near
+plane, the frame's edges, det = 0); the whole render through K7 bit for
+bit the plain path's; a call that may need a gradient never launches it."""
 
 import numpy as np
 import pytest
@@ -30,7 +37,9 @@ import chip_smoke as cs
 from gaussian_splatting_with_eye_tracking_tpu_torch import fps_test, renderer
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as tgm
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import amr, binning, blend, expand, segsum
+from gaussian_splatting_with_eye_tracking_tpu_torch.ops import projection
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import rasterize as trast
+from gaussian_splatting_with_eye_tracking_tpu_torch.ops import transforms as tf
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops.projection import preprocess
 from tests.torch_helpers import to_torch
 
@@ -973,3 +982,187 @@ def test_amr_quality_sweep_decimated_frame_matches_plain(dev, tmp_path):
                          max_instances=row["capacity"], gaze_xy=gaze, gaze_radii=radii)
     for decimation in amr_quality_sweep.DECIMATIONS:
         assert cs.hold_levels(st, 8, 6, "", decimation)[0] <= 1e-4
+
+
+def _det_zero_quats(count):
+    """wxyz quaternions (qr, 0, 0, qz) near a 45 degree turn about the view
+    axis whose rotation has R00 == R10 exactly in float32 (the card's
+    normalisation and products, each rounded): a needle along such a
+    rotation's x axis, on the axis of a camera whose fx = fy, gets a 2D
+    covariance with a == b == c, and det = 0 once the +0.3 low-pass is
+    lost to rounding."""
+    f = np.float32
+    qr0, qz0 = f(np.cos(np.pi / 8)), f(np.sin(np.pi / 8))
+    found = []
+    for i in range(-64, 64):
+        qr = f(qr0 + i * np.spacing(qr0))
+        qz = (qz0 + np.arange(-64, 64) * np.spacing(qz0)).astype(f)
+        norm = np.sqrt((qr * qr).astype(f) + (qz * qz).astype(f)).astype(f)
+        r_, z_ = (qr / norm).astype(f), (qz / norm).astype(f)
+        r00 = (f(1) - f(2) * (z_ * z_).astype(f)).astype(f)
+        r10 = (f(2) * (r_ * z_).astype(f)).astype(f)
+        found += [(qr, z) for z in qz[r00 == r10]]
+    assert len(found) >= 8
+    return np.resize(np.array([[r, 0, 0, z] for r, z in found], np.float32), (count, 4))
+
+
+def _k7_edge_inputs(dev):
+    """A 256x256 view of the front camera (fx = fy) and 4,096 gaussians:
+    1,024 behind, on and just past the near plane; 2,048 centred on and
+    around the frame's four edges; 64 needles on the view axis whose
+    covariance rounds to det = 0 (``_det_zero_quats``), scales (300..3000,
+    0, 0); 32 zero quaternions (NaN through the covariance) and 32 zero
+    scales; the rest as drawn."""
+    rng = np.random.default_rng(7)
+    means, scales, quats, op, sh = cs.make_scene(4096, seed=7, spread=2.0)
+    t = float(np.tan(np.radians(30.0)))
+    means[:1024, 2] = rng.uniform(-6.0, -4.3, 1024)  # view depth -1 .. 0.7
+    depth = rng.uniform(1.0, 8.0, 2048)
+    edge = t * depth * rng.choice([-1.0, 1.0], 2048) + rng.normal(0.0, 0.05, 2048)
+    across = rng.uniform(-t, t, 2048) * depth
+    means[1024:3072, 2] = depth - 5.0
+    means[1024:2048, 0], means[1024:2048, 1] = edge[:1024], across[:1024]
+    means[2048:3072, 1], means[2048:3072, 0] = edge[1024:], across[1024:]
+    needles = slice(3072, 3136)
+    means[needles] = 0.0
+    means[needles, 2] = rng.uniform(-3.0, 3.0, 64)
+    quats[needles] = _det_zero_quats(64)
+    scales[needles] = 0.0
+    scales[needles, 0] = rng.uniform(300.0, 3000.0, 64)
+    quats[3136:3168] = 0.0
+    scales[3168:3200] = 0.0
+    g = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (means, scales, quats, op, sh)]
+    return g, cs.view_request(0.0, 0.0, 256, 256).params(device=dev), needles
+
+
+def _plain_det(g, cam):
+    """``preprocess_plain``'s det = ac - b^2 of every slot, by its own calls."""
+    tx = torch.tensor(cam.tan_fovx, dtype=torch.float32, device=g[0].device)
+    ty = torch.tensor(cam.tan_fovy, dtype=torch.float32, device=g[0].device)
+    cov = tf.ewa_project(g[0], tf.build_cov3d(g[1], g[2]), cam.viewmatrix,
+                         cam.width / (2.0 * tx), cam.height / (2.0 * ty), tx, ty)
+    return cov[:, 0] * cov[:, 2] - cov[:, 1] * cov[:, 1]
+
+
+def _k7_case(case, dev):
+    """(args, kwargs) of a ``preprocess`` call for ``case``."""
+    if case == "bench300k":
+        g = [torch.from_numpy(a).to(dev) for a in cs.make_scene(cs.N)]
+        return (*g, 3, cs.view_request(6.0, -4.0).params(device=dev)), dict(tile=32)
+    if case == "padded":
+        # create_from_points' state: its padded rows hold _pad_params' inert
+        # fills; 65,536 of 262,144 slots active
+        pts = np.random.default_rng(3).uniform(-2.0, 2.0, (1 << 16, 3)).astype(np.float32)
+        pts[:, 2] += 5.0
+        cols = np.random.default_rng(4).uniform(0.0, 1.0, pts.shape).astype(np.float32)
+        state, _ = tgm.create_from_points(pts, cols, 3, _opt(), 1.0, capacity=1 << 18,
+                                          device=dev)
+        assert float(state.active.float().mean()) == 0.25
+        return ((*renderer.activated(state, 3), 3, front_camera(1920, 1088, dev)),
+                dict(tile=32, active_mask=state.active))
+    if case.startswith("deg"):  # bands above the degree masked, evaluated to the degree
+        deg = int(case[3])
+        g = random_scene(20_000, seed=5, sh_degree=3)
+        g[4] = g[4] * renderer.sh_band_mask(deg, 3)[None, None, :]
+        return (*(x.to(dev) for x in g), deg, front_camera(640, 480, dev)), dict(tile=32)
+    if case.startswith("k"):  # (N, 3, K) with K = (degree + 1)^2
+        deg = int(case[1])
+        g = random_scene(20_000, seed=6, sh_degree=deg)
+        return (*(x.to(dev) for x in g), deg, front_camera(640, 480, dev)), dict(tile=32)
+    if case == "odd_frame":  # 1000x700: the last tile column 8 px, the last row 28
+        g = random_scene(50_000, seed=8, sh_degree=3)
+        cam = cs.view_request(3.0, 2.0, 1000, 700).params(device=dev)
+        return (*(x.to(dev) for x in g), 3, cam), dict(tile=32, scale_modifier=1.3)
+    g, cam, _ = _k7_edge_inputs(dev)
+    return (*g, 3, cam), dict(tile=32)
+
+
+def _opt():
+    from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
+
+    return OptimizationConfig()
+
+
+K7_CASES = ["bench300k", "padded", "deg0", "deg1", "deg2", "deg3", "k0", "k1", "k2",
+            "odd_frame", "edges"]
+
+
+@pytest.mark.parametrize("case", K7_CASES)
+def test_preprocess_kernel_matches_plain(dev, case):
+    args, kw = _k7_case(case, dev)
+    before = projection.PREPROCESS.launches
+    with torch.no_grad():
+        got = preprocess(*args, **kw)
+        want = projection.preprocess_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert projection.PREPROCESS.launches == before + 1
+    mismatch = cs.preprocess_mismatch(got, want)
+    assert not cs.preprocess_failures(mismatch), mismatch
+    for name in want._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.shape == b.shape and a.dtype == b.dtype and a.is_contiguous(), name
+    drawn = want.radii > 0
+    assert drawn.any()
+    assert not drawn[want.depths <= projection.NEAR].any()
+    if case == "edges":  # the det = 0 cull is exercised: rects with tiles, culled by det
+        g, cam, needles = _k7_edge_inputs(dev)
+        zero = _plain_det(g, cam)[needles] == 0
+        area = (want.rect_max - want.rect_min).prod(-1)[needles]
+        assert int(zero.sum()) >= 32 and bool((area[zero] > 0).all())
+        assert not drawn[needles][zero].any()
+
+
+def test_render_through_k7_is_the_plain_paths(dev, monkeypatch):
+    """``renderer.render`` on the 300k scene at 1920x1088: the image and
+    the counters through K7 equal, bit for bit, the same render with
+    preprocess's plain version in K7's place."""
+    state = tgm.state_from_params(tgm.params_from_jax(
+        cs.raw_params(*cs.make_scene(cs.N)), device=dev), 3)
+    cam, bg = cs.view_request(-5.0, 3.0).params(device=dev), torch.tensor([0.1, 0.2, 0.3],
+                                                                            device=dev)
+    kw = dict(max_sh_degree=3, max_instances=cs.MAX_INSTANCES, max_live=cs.MAX_LIVE)
+    before = projection.PREPROCESS.launches
+    with torch.no_grad():
+        got = renderer.render(cam, state, bg, **kw)
+        assert projection.PREPROCESS.launches == before + 1
+        monkeypatch.setattr(projection, "preprocess_kernel", projection.preprocess_plain)
+        want = renderer.render(cam, state, bg, **kw)
+    assert projection.PREPROCESS.launches == before + 1
+    assert not bool(got.overflow) and int(got.num_instances) > 1_000_000
+    for name in ("color", "final_t", "radii", "means2d", "num_instances", "num_enumerated"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def test_preprocess_with_a_gradient_never_launches_k7(dev):
+    """Inputs that require a gradient take the plain, differentiable path
+    (no K7 launch) while the compositors still launch; the same call
+    under ``torch.no_grad`` launches K7 once."""
+    g = [x.to(dev) for x in random_scene(2000, seed=4, sh_degree=3)]
+    before = projection.PREPROCESS.launches, blend.BLEND_FWD.launches
+    grads = cs.small_scene_grads(trast, g, front_camera(160, 96, dev))
+    assert all(torch.isfinite(x).all() for x in grads)
+    assert projection.PREPROCESS.launches == before[0]
+    assert blend.BLEND_FWD.launches > before[1]
+    leaf = g[0].clone().requires_grad_(True)
+    prep = preprocess(leaf, *g[1:], 3, front_camera(160, 96, dev))
+    assert prep.means2d.requires_grad and projection.PREPROCESS.launches == before[0]
+    with torch.no_grad():
+        preprocess(leaf, *g[1:], 3, front_camera(160, 96, dev))
+    assert projection.PREPROCESS.launches == before[0] + 1
+
+
+def test_preprocess_kernel_refuses_what_it_does_not_take(dev):
+    g = [x.to(dev) for x in random_scene(500, seed=4, sh_degree=3)]
+    cam = front_camera(64, 64, dev)
+    before = projection.PREPROCESS.launches
+    with torch.no_grad():
+        for bad in ([*g[:4], g[4][..., :5].contiguous()],  # K = 5
+                    [g[0].double(), *g[1:]],
+                    [*g[:3], g[3][:-1], g[4]]):
+            with pytest.raises(ValueError):
+                preprocess(*bad, 3, cam)
+        with pytest.raises(ValueError):
+            preprocess(*g, 4, cam)
+        with pytest.raises(ValueError):
+            preprocess(*g, 3, cam, active_mask=torch.ones(500, dtype=torch.int32, device=dev))
+    assert projection.PREPROCESS.launches == before

@@ -5,7 +5,9 @@ rtol 1e-4; the integer fields (radii, tiles_touched, rect_min, rect_max)
 exactly. The gradient (torch autograd through the port's forward) against
 JAX's hand-derived VJP on the same inputs and cotangents, finite and to
 the tolerance JAX holds its hand VJP to against autodiff (atol 2e-5 of the
-largest value, rtol 1e-4)."""
+largest value, rtol 1e-4). On CPU tensors ``preprocess`` is its plain
+version, with or without a gradient, and counts no kernel rows; the
+kernel's wrapper refuses them and launches nothing."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from gaussian_splatting_with_eye_tracking_tpu.ops import projection as jproj
+from gaussian_splatting_with_eye_tracking_tpu_torch import backend, tracing
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import projection as tproj
 from tests.helpers import make_camera, make_orbit_camera, make_random_gaussians
 from tests.torch_helpers import assert_close, assert_equal, cam_to_torch, to_torch
@@ -105,3 +108,64 @@ def test_preprocess_vjp_matches_jax(sh_degree, extreme):
         assert torch.isfinite(a).all(), name
         assert_close(a, b, atol=2e-5 * np.abs(b).max(), rtol=1e-4, msg=name)
 
+
+
+def _cpu_inputs():
+    """300 gaussians with the extreme rows, as CPU tensors; a 96x80 camera;
+    the last 10 slots inactive."""
+    g = [to_torch(x) for x in _scene(300, 1, 3, extreme=True)]
+    return g, cam_to_torch(make_camera(96, 80)), torch.arange(300) < 290
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_cpu_preprocess_is_the_plain_version(monkeypatch, grad):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the kernel's wrapper was called on the CPU")
+
+    monkeypatch.setattr(tproj, "preprocess_kernel", refuse)
+    g, cam, mask = _cpu_inputs()
+    if grad:
+        g[0].requires_grad_(True)
+    got = tproj.preprocess(*g, 3, cam, active_mask=mask)
+    want = tproj.preprocess_plain(*g, 3, cam, active_mask=mask)
+    for name in want._fields:
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    assert got.means2d.requires_grad == grad
+
+
+def test_cpu_preprocess_counts_no_kernel_rows():
+    g, cam, mask = _cpu_inputs()
+    tracing._records.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.no_grad():
+            tproj.preprocess(*g, 3, cam, active_mask=mask)
+    counts = [(c.name, c.value) for c in tracing.counters()]
+    tracing._records.clear()
+    assert counts == [("gs.preprocess.rows", 300), ("gs.preprocess.active", 290)]
+
+
+def test_tracing_lists_the_kernel_counter():
+    assert "``gs.preprocess.kernel``" in tracing.__doc__
+    assert "gs.preprocess.kernel" in tproj.preprocess.__doc__
+
+
+def test_preprocess_kernel_refuses_cpu_tensors():
+    g, cam, mask = _cpu_inputs()
+    before = tproj.PREPROCESS.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tproj.preprocess_kernel(*g, 3, cam, active_mask=mask)
+    with pytest.raises(ValueError, match="sh_degree 4"):
+        tproj.preprocess_kernel(*g, 4, cam)
+    assert tproj.PREPROCESS.launches == before
+
+
+def test_preprocess_kernel_builds_without_fma_contraction():
+    """K7's source alone is compiled with -fmad=false (its integers follow
+    the plain version's per-op rounding); the other sources keep the
+    flags, and so their libraries' names."""
+    assert backend._flags(backend.CSRC / "preprocess.cu") == \
+        backend.NVCC_FLAGS + ["-fmad=false"]
+    for src in backend.CSRC.glob("*.cu"):
+        if src.stem != "preprocess":
+            assert backend._flags(src) == backend.NVCC_FLAGS, src.name
