@@ -6,7 +6,8 @@ convolutions, LeakyReLU 0.01, BatchNorm) and 4 up blocks (nearest x2
 upsampling and skip concatenation), 32 channels, 4 classes (background,
 sclera, iris, pupil), 249,220 parameters; the preprocessing (gamma 0.8
 table, CLAHE 1.5 on an 8x8 grid, normalisation to [-1, 1]) and the pupil
-centroid that serves as the gaze estimate.
+centroid that serves as the gaze estimate, for one eye image or a stack
+of them (a headset's two eyes through one forward).
 
 One forward, ``densenet2d_apply``, runs over a dict of checkpoint-named
 tensors (``down_block1.conv1.weight``, ..., ``out_conv1.bias``) with one of
@@ -315,14 +316,103 @@ def preprocess_eye_image(img_u8_gray: np.ndarray, device=None) -> torch.Tensor:
     return torch.from_numpy(normalise_eye_image(img_u8_gray))[None, None].to(dev)
 
 
+_CLAHE_PLANS: dict = {}
+
+
+def _clahe_plan(h: int, w: int, device, clip_limit: float = 1.5, grid=(8, 8)) -> dict:
+    """``normalise_eye_image``'s per-shape constants on ``device``, made
+    once: the gamma and normalisation tables, each padded pixel's source
+    pixel (reflect padding) and tile offset, and each output pixel's four
+    neighbouring tiles' offsets and the float64 weights ``clahe`` gives
+    them."""
+    key = (h, w, str(device), clip_limit, tuple(grid))
+    if key not in _CLAHE_PLANS:
+        gy, gx = grid
+        th, tw = -(-h // gy), -(-w // gx)
+        rows = np.pad(np.arange(h), (0, th * gy - h), mode="reflect")
+        cols = np.pad(np.arange(w), (0, tw * gx - w), mode="reflect")
+        fy = (np.arange(h) + 0.5) / th - 0.5
+        fx = (np.arange(w) + 0.5) / tw - 0.5
+        y0 = np.clip(np.floor(fy).astype(int), 0, gy - 1)
+        x0 = np.clip(np.floor(fx).astype(int), 0, gx - 1)
+        y1, x1 = np.clip(y0 + 1, 0, gy - 1), np.clip(x0 + 1, 0, gx - 1)
+        wy, wx = np.clip(fy - y0, 0, 1)[:, None], np.clip(fx - x0, 0, 1)[None, :]
+        levels = np.arange(256, dtype=np.uint8)
+
+        def on(a):
+            return torch.as_tensor(a, device=device)
+
+        _CLAHE_PLANS[key] = dict(
+            tiles=gy * gx, clip=max(1, int(clip_limit * th * tw / 256.0)),
+            gamma=on(gamma_lut(levels).astype(np.int64)),
+            unit=on((levels.astype(np.float32) / 255.0 - 0.5) / 0.5),
+            src=on((rows[:, None] * w + cols[None, :]).ravel()),
+            tile=on(((np.arange(th * gy) // th)[:, None] * gx
+                     + (np.arange(tw * gx) // tw)[None, :]).ravel() * 256),
+            corners=[(on(((yi[:, None] * gx + xi[None, :]) * 256).ravel()), on(a), on(b))
+                     for yi, xi, a, b in ((y0, x0, 1 - wy, 1 - wx), (y1, x0, wy, 1 - wx),
+                                          (y0, x1, 1 - wy, wx), (y1, x1, wy, wx))])
+    return _CLAHE_PLANS[key]
+
+
+def normalise_eye_images(eyes_u8: torch.Tensor) -> torch.Tensor:
+    """``normalise_eye_image`` for each of a (B, H, W) uint8 stack, where
+    the stack lies, in tensor operations: the gamma 0.8 table, CLAHE 1.5
+    on an 8x8 grid, normalisation to [-1, 1]. Equal bit for bit to the
+    NumPy version: the histograms and cumulative sums are whole multiples
+    of 1/256, and the maps and the interpolation take the same float64
+    operations in the same order. -> (B, H, W) float32."""
+    b, h, w = eyes_u8.shape
+    plan = _clahe_plan(h, w, eyes_u8.device)
+    tiles, clip = plan["tiles"], plan["clip"]
+    v = plan["gamma"][eyes_u8.long()].reshape(b, h * w)
+    keys = v[:, plan["src"]] + plan["tile"] + tiles * 256 * torch.arange(
+        b, device=v.device)[:, None]
+    hist = torch.bincount(keys.ravel(), minlength=b * tiles * 256).view(b, tiles, 256).double()
+    excess = (hist - clip).clamp_min(0).sum(-1, keepdim=True)
+    cdf = (hist.clamp_max(clip) + excess / 256.0).cumsum(-1)
+    lo = cdf.amin(-1, keepdim=True)
+    maps = ((cdf - lo) / (cdf[..., -1:] - lo).clamp_min(1e-9) * 255.0).float().view(b, -1)
+    out = None
+    for tile, wy, wx in plan["corners"]:
+        term = maps.gather(1, tile + v).view(b, h, w) * wy * wx
+        out = term if out is None else out + term
+    return plan["unit"][out.to(torch.uint8).long()]
+
+
+@tracing.spanned("gs.gaze.prep")
+def preprocess_eye_images(imgs_u8_gray, device=None) -> torch.Tensor:
+    """A list or (B, H, W) stack of uint8 grayscale eyes -> the normalised
+    (B, 1, H, W) float32 model input on ``device`` (CUDA unless the caller
+    asks for another): one upload of the uint8 stack, then
+    ``normalise_eye_images`` there, equal to ``preprocess_eye_image`` on
+    each eye."""
+    dev = backend.resolve_device(device)
+    eyes = torch.from_numpy(np.ascontiguousarray(np.stack(list(imgs_u8_gray)))).to(dev)
+    return normalise_eye_images(eyes)[:, None]
+
+
 @tracing.spanned("gs.gaze.centroid")
 def pupil_centroid(pred) -> np.ndarray:
     """Gaze estimate: the pupil class's centroid (x, y) in image
     coordinates of an (H, W) class map (tensor or array), or the image
     centre where no pixel is pupil."""
     pred = pred.cpu().numpy() if isinstance(pred, torch.Tensor) else np.asarray(pred)
+    return _centroid(pred)
+
+
+def _centroid(pred: np.ndarray) -> np.ndarray:
     ys, xs = np.nonzero(pred == PUPIL)
     if len(xs) == 0:
         h, w = pred.shape
         return np.array([w / 2.0, h / 2.0])
     return np.array([xs.mean(), ys.mean()])
+
+
+@tracing.spanned("gs.gaze.centroid")
+def pupil_centroids(pred) -> np.ndarray:
+    """(B, 2) pupil centroids (x, y) of a (B, H, W) class map (tensor or
+    array), each as ``pupil_centroid`` reads its map, after one copy of
+    the whole map to the host."""
+    pred = pred.cpu().numpy() if isinstance(pred, torch.Tensor) else np.asarray(pred)
+    return np.stack([_centroid(p) for p in pred])

@@ -40,14 +40,21 @@ The spans, each inside its parent:
   ``gs.levels`` (``assign_levels`` / ``gaze_levels``), ``gs.composite``
   (``blend.blend_levels``, ``blend.blend_round``), ``gs.assemble`` (the
   fused frame's stacking, interpolation and background);
+- ``gs.binocular`` (``track_render.headset_frame``, a head-mounted
+  display's frame): ``gs.gaze`` once (both eyes through one RITnet
+  forward), ``gs.activate`` once (``track_render.binocular_frame``: the
+  activations both eyes share), then ``gs.fovea`` for each eye;
 - the train step (``train_lib.make_train_step``): ``gs.render``, then
   ``gs.loss``, ``gs.backward`` and ``gs.optimizer`` (Adam, the
   densification statistics, the step's aux).
 
 The counters: ``gs.preprocess.rows`` (the rows ``preprocess`` was given),
-``gs.preprocess.active`` (the active ones among them) and
+``gs.preprocess.active`` (the active ones among them),
 ``gs.preprocess.kernel`` (the rows that went through its hand-written
-kernel, K7; none on the CPU or where a gradient may be taken).
+kernel, K7; none on the CPU or where a gradient may be taken),
+``gs.gaze.eyes`` (the eye images of one ``estimate_gaze`` forward: 1, or
+2 for a headset's pair) and ``gs.fovea.instances`` (the instances a
+foveated view binned, ``num_instances``: a device scalar).
 """
 
 from __future__ import annotations

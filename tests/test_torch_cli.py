@@ -347,6 +347,40 @@ def test_track_render_matches_jax(cli_run, tmp_path):
         assert diff.max() <= 1 / 255 + 1e-3 and rendered.max() > 0
 
 
+def test_track_render_binocular(cli_run, tmp_path):
+    """track_render's main with ``--eye_image_right`` on the 30-step model:
+    the gazes are ``estimate_gaze``'s on the pair, both segmentations are
+    written, and each camera's two renders are ``binocular_frame``'s on
+    the eye cameras -IPD/2 and +IPD/2 along the camera's x axis (within
+    the PNG's rounding, 1/255)."""
+    root, model, _ = cli_run
+    paths = [str(tmp_path / "left.png"), str(tmp_path / "right.png")]
+    for path, seed, uv in zip(paths, (0, 1), ((0.45, 0.5), (0.5, 0.5))):
+        Image.fromarray(cs.make_eye(seed=seed, height=96, width=128, gaze_uv=uv)).save(path)
+    out_dir = str(tmp_path / "binocular")
+    got = _cli(track_render.main, ["-m", model, "--eye_image", paths[0], "--eye_image_right",
+                                   paths[1], "--num_views", "1", "--out_dir", out_dir, "--quiet"])
+    uvs, _ = track_render.estimate_gaze([track_render.read_eye_image(p) for p in paths],
+                                        device="cpu")
+    np.testing.assert_array_equal(np.asarray(got["gaze_uv"]), uvs)
+    assert got["renders"] == [os.path.join(out_dir, f"foveated_000_{side}.png")
+                              for side in ("left", "right")]
+    assert got["capacities"] == [1 << 20] and len(got["view_ms"]) == 1
+    for name in ("eye_seg_pred.png", "eye_seg_pred_right.png"):
+        assert _levels(os.path.join(model, name)).shape == (96, 128, 3)
+
+    scene = Scene(ModelConfig(source_path=root, model_path=model, data_device="cpu",
+                              eval=True), load_iteration=-1, shuffle=False, load_images=False)
+    c = scene.get_train_cameras()[0].params("cpu")
+    cams = [track_render.eye_camera(c, side * track_render.IPD / 2) for side in (-1, 1)]
+    colors, _ = track_render.binocular_frame(scene.gaussians, cams, torch.zeros(3), uvs,
+                                             scene.max_sh_degree,
+                                             radii=track_render.ring_radii(c.width))
+    assert not torch.equal(colors[0], colors[1])
+    for color, path in zip(colors, got["renders"]):
+        rendered = _levels(path).transpose(2, 0, 1) / 255.0
+        assert np.abs(rendered - np.clip(color.numpy(), 0, 1)).max() <= 1 / 255 + 1e-6
+
 def test_overflow_redo(tmp_path):
     """A tiny instance capacity: the first step overflows, the capacity
     grows and the step is redone; training ends with finite parameters."""
