@@ -29,10 +29,18 @@ Phases (any failure raises and the script exits non-zero):
     shapes (the 300k scene; 1M of its gaussians in 4,194,304 slots, the
     rest inert and inactive): radii, tiles and rects equal on every slot,
     culled slots' opacity and colour 0, the floats within ``PREP_TOL``,
-    timed with its plain version; the index expand (K6,
-    which no path of the package calls) along the segment expand's own
-    slot -> column map, bit-exact against its plain version and against
-    the segment expand's output;
+    timed with its plain version; the binning pipeline (K8) on the 300k
+    front view (``max_live`` below the capacity) and on 1M of the scene's
+    gaussians in 4,194,304 slots at 2^23: every field bit for bit the
+    plain version's (``binning_mismatch``), its launch calls counted (2),
+    timed as called and by its device operations alone (torch.profiler,
+    from a capture that caught every call's), with their count, its bytes
+    bound and its registers and spills, beside the plain version; the
+    segment expand (K1, which the main path no longer calls) on the front
+    view's compact table; the index expand (K6, which no path of the
+    package calls) along the segment expand's own slot -> column map,
+    bit-exact against its plain version and against the segment expand's
+    output;
  6. time each view and each kernel with CUDA events (warm-up, then the
     median of 10), beside the plain versions and the library yardstick
     (the segment expand also as a share of its bytes bound);
@@ -96,13 +104,13 @@ Phases (any failure raises and the script exits non-zero):
     ``render``, ``metrics``. Every loss finite (the trainer raises
     otherwise); test PSNR at 1000 >= 18 dB and above the one at 500;
     ``blend_bwd`` and ``segsum`` launched at least 1000 times and
-    ``expand_seg`` / ``blend_fwd`` more; 3 test renders of 256x256;
+    ``binning`` / ``blend_fwd`` more; 3 test renders of 256x256;
     results.json's PSNR within 0.2 dB of the trainer's at 1000 (PNG
     quantisation); the checkpoint loads back bit for bit;
 15. the serving-side entry points, in this process through each module's
     ``main``, the launch counters zeroed before and read after each:
     ``bench`` (its last line the root bench.py's four keys, value > 0;
-    K1-K4 launched on every timed step); ``fps_test`` on the synthetic
+    K8, K2-K4 launched on every timed step); ``fps_test`` on the synthetic
     100k scene at ratios 0.2, 1.0 and 2.0 (up to 3840x2144, 8,040 tiles),
     vanilla and AMR, and on the CLI model through ``-m`` alone (its
     ``cfg_args`` overlaid) at 1.0: no overflow at the capacity used, times
@@ -150,10 +158,10 @@ Phases (any failure raises and the script exits non-zero):
     exactly, ``render_naive`` against ``render_tiles_jnp``, the 5-step AMR
     frame's kernels against its oracle, the blocked 3-NN against cKDTree
     on 50,000 points and its duplicate delta on 5,000 points taken twice;
-    K1-K4 and the round kernel launched;
+    K8, K2-K4 and the round kernel launched;
 18. the trained model's 1080p bench (``train_regression.trained_bench``)
     on the CLI phase's 1000-step model: live instances, ms of a forward +
-    backward, Mpix/s; K1-K4 on every timed step;
+    backward, Mpix/s; K8, K2-K4 on every timed step;
 19. the viewer: ``train`` resumed from the CLI phase's checkpoint for 3
     iterations with ``--port`` on a free local port; a client asks for a
     256x256 view with train=False, then one with train=True so training
@@ -176,7 +184,7 @@ Phases (any failure raises and the script exits non-zero):
     exchange (each band's rows equal the live rows
     whose rect meets it, their centres equal as sets, peak memory within
     ``exchange_memory_bytes`` + 10 %), two steps of each train step against
-    two one-device steps at (a)'s gates, no band over its capacity, K1 and
+    two one-device steps at (a)'s gates, no band over its capacity, K8 and
     K2 in each rank for each render and K3 and K4 once per rank per step
     (counters zeroed before, read after), and K1-K4 on the last rank's
     band grid (60 x 17 tiles) against their plain versions (K1 bit-exact,
@@ -259,6 +267,7 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 REPLACES = {
     "preprocess": "none (the JAX package's preprocess is column math that XLA fuses)",
+    "binning": "none (the JAX package's build_sorted_instances is XLA ops around K1)",
     "expand_seg": "gaussian_splatting_with_eye_tracking_tpu/ops/expand.py:74",
     "expand_rows": "gaussian_splatting_with_eye_tracking_tpu/ops/expand.py:35",
     "blend_fwd": "gaussian_splatting_with_eye_tracking_tpu/ops/pallas_blend.py:563",
@@ -397,6 +406,38 @@ def preprocess_failures(mismatch: dict) -> list:
             if (v > PREP_TOL if isinstance(v, float) else v != 0)]
 
 
+def binning_mismatch(got, want) -> list:
+    """The fields where K8's ``SortedInstances`` (``got``) differs from the
+    plain version's (``want``), bit for bit: the counters, offsets and
+    per-gaussian ranges everywhere; ``gauss_id`` and the feature rows on
+    the listed instances (``offsets[-1]`` of them); ``tile_id`` and
+    ``id_pos`` on every lane (num_tiles and max_instances past the listed
+    ones on both sides); K8's rows 0-9 zero outside the listed lanes."""
+    b, w = got.binning, want.binning
+    bad = [name for name in ("num_instances", "num_enumerated", "overflow", "offsets",
+                             "gauss_start", "gauss_count", "tile_id")
+           if not torch.equal(getattr(b, name), getattr(w, name))]
+    n = int(w.offsets[-1])
+    if not torch.equal(b.gauss_id[:n], w.gauss_id[:n]):
+        bad.append("gauss_id")
+    if not torch.equal(got.id_pos, want.id_pos):
+        bad.append("id_pos")
+    if (got.lead, got.feat_soa.shape, got.feat_rows.shape) != (
+            want.lead, want.feat_soa.shape, want.feat_rows.shape):
+        return bad + ["feat_soa shape"]
+    bits = lambda x: x.contiguous().view(torch.int32)  # noqa: E731
+    if not torch.equal(bits(got.feat_rows[:, :n]), bits(want.feat_rows[:, :n])):
+        bad.append("feat_rows")
+    lanes = slice(got.lead, got.lead + n)
+    if not torch.equal(bits(got.feat_soa[:10, lanes]), bits(want.feat_soa[:10, lanes])):
+        bad.append("feat_soa")
+    rest = torch.ones(got.feat_soa.shape[1], dtype=torch.bool, device=got.feat_soa.device)
+    rest[lanes] = False
+    if got.feat_soa[:10, rest].any():
+        bad.append("feat_soa past the listed lanes")
+    return bad
+
+
 def preprocess_phase(dev):
     """Phase 5's K7 check and timing at ``PREP_SHAPES`` (a yawed and
     pitched view): per shape the mismatch against the plain version, the
@@ -444,19 +485,113 @@ def preprocess_phase(dev):
     return out
 
 
+# Sources of a pipeline of kernels, with no one occupancy to report
+NO_OCCUPANCY = {"binning"}
+
+
 def ptxas_report(backend, stem):
-    """Registers, static shared memory and spilled bytes of the one kernel
-    of ``csrc/<stem>.cu`` (ptxas' report), and its CTAs per SM (the CUDA
-    runtime's occupancy query)."""
+    """Registers, static shared memory and spilled bytes of the kernels of
+    ``csrc/<stem>.cu`` (ptxas' report; the largest over them), and, but for
+    ``NO_OCCUPANCY``, its kernel's CTAs per SM (the CUDA runtime's occupancy
+    query, which the source exports)."""
     text = backend.build_log(stem)
     regs = re.findall(r"Used (\d+) registers", text)
     smem = re.findall(r"(\d+) bytes smem", text)
     spills = re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)
     if not regs or not spills:
         raise AssertionError(f"{stem}: no ptxas report:\n{text}")
-    return {"registers": max(map(int, regs)), "smem_bytes": max(map(int, smem), default=0),
-            "spill_bytes": max(int(a) + int(b) for a, b in spills),
-            "blocks_per_sm": backend.blocks_per_sm(stem)}
+    out = {"registers": max(map(int, regs)), "smem_bytes": max(map(int, smem), default=0),
+           "spill_bytes": max(int(a) + int(b) for a, b in spills)}
+    if stem not in NO_OCCUPANCY:
+        out["blocks_per_sm"] = backend.blocks_per_sm(stem)
+    return out
+
+
+# K8's timed shapes at the front view: (gaussians, slots, seed, max_instances,
+# max_live): the 300k scene at bench.py's capacities, and 1M of its
+# gaussians in 4,194,304 slots at the 1M scene's capacity, 2^23
+BIN_SHAPES = {"300k": (N, N, 0, MAX_INSTANCES, MAX_LIVE),
+              "4M_1M": (1_000_000, 1 << 22, 2, 1 << 23, None)}
+
+
+def binning_ops(call, calls: int) -> list:
+    """The device operations of ``calls`` calls of ``call`` (torch.profiler),
+    from an attempt that caught every call's: ``calls`` times the count of
+    one profiled call. Up to three attempts; AssertionError if none did."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import tracing
+
+    def profiled(n):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as p:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        return tracing.device_ops(p.events())
+
+    per_call = len(profiled(1))
+    counts = []
+    for _ in range(3):
+        ops = profiled(calls)
+        if len(ops) == calls * per_call:
+            return ops
+        counts.append(len(ops))
+    raise AssertionError(f"the profiler caught {counts} device operations over {calls} calls, "
+                         f"not {calls} x {per_call}")
+
+
+def binning_phase(dev):
+    """Phase 5's K8 check and timing at ``BIN_SHAPES``: per shape the fields
+    that differ from the plain version's (none may), the wrapper's ms, the
+    device time of one call's operations alone (``binning_ops``, over 10
+    calls) and their count, the launch calls of one call (counted by the
+    wrappers; 2), the plain version's ms, and the bytes bound:
+    every slot's tiles_touched and each live gaussian's attributes read
+    once, the outputs written once (rows 0-9 of the (16, kp) array,
+    gauss_id, tile_id, id_pos, the offsets, the per-gaussian ranges)."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning, projection
+
+    cam = view_request(0.0, 0.0).params(device=dev)
+    gx, gy = -(-W // 32), -(-H // 32)
+    out = {}
+    for tag, (n, slots, seed, cap, live) in BIN_SHAPES.items():
+        g, active = preprocess_inputs(n, slots, seed, dev)
+        with torch.no_grad():
+            prep = projection.preprocess(*g, 3, cam, tile=32, active_mask=active)
+        args = (prep.means2d, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched,
+                prep.rect_min, prep.rect_max, prep.cull_thr, prep.depths, gx, gy, cap, 32)
+        kw = dict(max_live=live)
+        before = binning.BINNING_SORT.launches + binning.BINNING_LAYOUT.launches
+        got = binning.build_sorted_instances_kernel(*args, **kw)
+        launch_calls = binning.BINNING_SORT.launches + binning.BINNING_LAYOUT.launches - before
+        if launch_calls != 2:
+            raise AssertionError(f"binning {tag}: {launch_calls} launch calls, not 2")
+        want = binning.build_sorted_instances_plain(*args, **kw)
+        torch.cuda.synchronize()
+        mismatch = binning_mismatch(got, want)
+        if mismatch:
+            raise AssertionError(f"binning {tag}: K8 differs from the plain version in "
+                                 f"{mismatch}")
+        ms = cuda_ms(lambda: binning.build_sorted_instances_kernel(*args, **kw))
+        plain_ms = cuda_ms(lambda: binning.build_sorted_instances_plain(*args, **kw))
+        calls = 10
+        ops = binning_ops(lambda: binning.build_sorted_instances_kernel(*args, **kw), calls)
+        kernel_ms = sum(e.device_time_total for e in ops) / 1e3 / calls
+        b = want.binning
+        live_n = int((prep.tiles_touched > 0).sum())
+        kp, max_live = got.feat_soa.shape[1], got.id_pos.shape[0]
+        nbytes = (4 * slots + 60 * live_n + 40 * kp + 16 * max_live + 4 * (gx * gy + 1)
+                  + 8 * slots)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        out[tag] = {"slots": slots, "live": live_n, "enumerated": int(b.num_enumerated),
+                    "kept": int(b.num_instances), "listed": int(b.offsets[-1]),
+                    "mismatch": mismatch, "ms": ms, "kernel_ms": kernel_ms,
+                    "plain_ms": plain_ms, "bound_ms": bound, "mbytes": nbytes / 1e6,
+                    "device_ops": len(ops) // calls, "launch_calls": launch_calls}
+        log(f"binning {tag}: {slots} slots, {live_n} live, {int(b.num_enumerated)} pairs, "
+            f"{int(b.num_instances)} kept; K8 vs plain bit for bit; {ms:.4f} ms, its "
+            f"{len(ops) / calls:.0f} device operations {kernel_ms:.4f} ms "
+            f"({100 * bound / kernel_ms:.1f} % of the bound {bound:.4f} ms, "
+            f"{nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms")
+    return out
 
 
 def small_scene_grads(rast, scene, cam):
@@ -550,7 +685,7 @@ def train_phase(params, cams, targets, bg):
     for name in ("blend_bwd", "segsum"):
         if launches[name] != len(losses):
             raise AssertionError(f"{name} ran {launches[name]} times in {len(losses)} steps")
-    for name in ("expand_seg", "blend_fwd"):
+    for name in ("binning", "blend_fwd"):
         if launches[name] < len(losses):
             raise AssertionError(f"{name} ran {launches[name]} times in {len(losses)} steps")
     if int(gm.num_active(state)) <= 0:
@@ -916,7 +1051,7 @@ def foveated_phase(state, cam, bg, model, eye, gaze_uv, serve_ms):
         need = want.get(name, want["fused"])
         bad = {k: got[k] for k in ("blend_round", "blend_levels") if got[k] != need[k]}
         bad.update({k: got[k] for k in ("blend_fwd", "blend_bwd", "segsum") if got[k]})
-        if bad or got["expand_seg"] < 1:
+        if bad or got["binning"] < 1:
             raise AssertionError(f"{name} frame launched {got}")
         img, st = images[name], states[name]
         if bool(st.overflow):
@@ -1162,7 +1297,7 @@ def cli_phase(tmp):
     for name in ("blend_bwd", "segsum"):
         if launches[name] < n:
             raise AssertionError(f"CLI training: {name} ran {launches[name]} times in {n} steps")
-    for name in ("expand_seg", "blend_fwd"):
+    for name in ("binning", "blend_fwd"):
         if launches[name] <= launches["blend_bwd"]:
             raise AssertionError(f"CLI training: {name} ran {launches[name]} times")
     if shapes != [(3, 256, 256)] * 3:
@@ -1233,7 +1368,7 @@ def entry_phase(tmp, gaze_uv):
     doc = json.loads(line)
     if list(doc) != BENCH_LINE_KEYS or not doc["value"] > 0 or doc != res["line"]:
         raise AssertionError(f"bench printed {line!r}")
-    per_step = {"expand_seg": res["iterations"], "blend_fwd": res["iterations"],
+    per_step = {"binning": res["iterations"], "blend_fwd": res["iterations"],
                 "blend_bwd": res["iterations"], "segsum": res["iterations"]}
     need_launches("bench, timed steps", res["launches"], per_step)
     need_launches("bench", launches, per_step)
@@ -1265,11 +1400,11 @@ def entry_phase(tmp, gaze_uv):
         renders = len(ratios) * (fps_test.REPS + 2)  # probe, warm-up, timed
         if amr_mode:
             need_launches(f"sweep {tag}", launches,
-                          {"expand_seg": renders, "blend_round": 4 * renders},
+                          {"binning": renders, "blend_round": 4 * renders},
                           ("blend_fwd", "blend_levels"))
         else:
             need_launches(f"sweep {tag}", launches,
-                          {"expand_seg": renders, "blend_fwd": renders},
+                          {"binning": renders, "blend_fwd": renders},
                           ("blend_round", "blend_levels"))
         sweeps[tag] = {"results": results, "launches": launches, "card": saved["card"]}
         log(f"sweep {tag} ({saved['card']}): " + "; ".join(
@@ -1339,7 +1474,7 @@ def entry_phase(tmp, gaze_uv):
             s["ms"] for s in doc["steps_protocol"]]
         if missing or not all(math.isfinite(t) and t > 0 for t in times):
             raise AssertionError(f"foveated {tag}: missing {missing}, times {times}")
-        need_launches(f"foveated {tag}", launches, {"expand_seg": 1, "blend_round": 4,
+        need_launches(f"foveated {tag}", launches, {"binning": 1, "blend_round": 4,
                                                     "blend_levels": 1, "blend_fwd": 1})
         fov[tag] = {"doc": doc, "launches": launches}
         log(f"foveated CLI {tag}: " + json.dumps(doc))
@@ -1382,7 +1517,7 @@ def entry_phase(tmp, gaze_uv):
     res, launches = counted(run_cli, track_render.main, [
         "-m", model, "--eye_image", eye_path, "--num_views", "4", "--out_dir", fov_dir,
         "--quiet"])
-    need_launches("track_render", launches, {"expand_seg": 4, "blend_round": 16},
+    need_launches("track_render", launches, {"binning": 4, "blend_round": 16},
                   ("blend_fwd", "blend_levels", "blend_bwd", "segsum"))
     if launches["blend_round"] != 16 or res["capacities"] != [1 << 20] * 4:
         raise AssertionError(f"track_render: launches {launches}, capacities "
@@ -1691,7 +1826,7 @@ def parity_phase():
         res, launches = counted(parity_probe.main, [])
     for line in buf.getvalue().strip().splitlines():
         log(f"  parity probe: {line}")
-    need_launches("parity probe", launches, {"expand_seg": 1, "blend_fwd": 1, "blend_bwd": 1,
+    need_launches("parity probe", launches, {"binning": 1, "blend_fwd": 1, "blend_bwd": 1,
                                              "segsum": 1, "blend_round": 4})
     worst = max(g["rel"] for g in res["grads"].values())
     if not (res["ok"] and worst < PROBE_GRAD_GATE):
@@ -1711,7 +1846,7 @@ def trained_bench_phase(tmp):
                        "point_cloud.ply")
     res, launches = counted(train_regression.trained_bench, ply)
     steps = train_regression.BENCH_REPS + 1
-    need_launches("trained bench", launches, {"expand_seg": steps, "blend_fwd": steps,
+    need_launches("trained bench", launches, {"binning": steps, "blend_fwd": steps,
                                               "blend_bwd": steps, "segsum": steps})
     log(f"trained-model 1080p bench ({CLI_ITERATIONS}-step CLI model): "
         f"{json.dumps(res)}; launches {launches}")
@@ -1807,7 +1942,7 @@ def viewer_phase(tmp):
                                  f"({out['levels_off'][name]}, source {source!r})")
     if len(set(want.tolist())) < 2:
         raise AssertionError("viewer: make_eval_render's frame is blank")
-    need_launches("viewer training", launches, {"expand_seg": 5, "blend_fwd": 5,
+    need_launches("viewer training", launches, {"binning": 5, "blend_fwd": 5,
                                                 "blend_bwd": 3, "segsum": 3})
     log(f"viewer on port {port}: frames equal make_eval_render's to {out['levels_off']}; "
         f"round trips {out['round_trip_ms']} ms (host clock, 256x256); launches {launches}")
@@ -1945,7 +2080,7 @@ def one_rank_checks(state, start, tx, opt, cams, targets, bg, width, height, cap
         f"(gate {RENDER_TOL}); launches {launches}")
     if err > RENDER_TOL or bool(overflow.any()):
         raise AssertionError(f"multi-GPU (a): band render differs by {err}")
-    need_launches("multi-GPU (a) render", launches, {"expand_seg": 1, "blend_fwd": 1},
+    need_launches("multi-GPU (a) render", launches, {"binning": 1, "blend_fwd": 1},
                   none_of=("blend_bwd", "segsum"))
     out["render"] = {"max_abs_diff": err, "launches": launches}
 
@@ -1965,7 +2100,7 @@ def one_rank_checks(state, start, tx, opt, cams, targets, bg, width, height, cap
                             ("gauss", gauss, sharded.shard_model_state(gmesh, start))):
         recs, _, _, launches = timed_steps(step, st0, views[:1], targets[:1], bg)
         need_launches(f"multi-GPU (a) {kind} step", launches[0],
-                      {"expand_seg": 1, "blend_fwd": 1, "blend_bwd": 1, "segsum": 1})
+                      {"binning": 1, "blend_fwd": 1, "blend_bwd": 1, "segsum": 1})
         if launches[0]["blend_bwd"] != 1 or launches[0]["segsum"] != 1:
             raise AssertionError(f"multi-GPU (a) {kind}: launches {launches[0]}")
         out[kind] = {**hold_steps(f"multi-GPU (a) {kind} step", recs, want[:1], tx),
@@ -2215,13 +2350,13 @@ def multi_gpu_phase(tmp, params, state, images, bg):
                                  "gauss": r["gauss_launches"]} for r in ranks}
     for r in ranks:
         need_launches(f"rank {r['rank']} render", r["render_launches"],
-                      {"expand_seg": 1, "blend_fwd": 1})
+                      {"binning": 1, "blend_fwd": 1})
         for kind in ("band", "gauss"):
             for per_step in r[f"{kind}_launches"]:
                 if per_step["blend_bwd"] != 1 or per_step["segsum"] != 1:
                     raise AssertionError(f"rank {r['rank']} {kind} step: {per_step}")
                 need_launches(f"rank {r['rank']} {kind} step", per_step,
-                              {"expand_seg": 1, "blend_fwd": 1})
+                              {"binning": 1, "blend_fwd": 1})
     b["step_ms"] = {kind: [r[f"{kind}_ms"] for r in ranks] for kind in ("band", "gauss")}
     b["kernels"] = ranks[-1]["kernels"]
     log(f"multi-GPU (b): step ms per rank (host clock, ranks sharing one card: no speed "
@@ -2285,14 +2420,17 @@ class plain_route:
     launching no kernel."""
 
     def __enter__(self):
-        from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, expand, projection
+        from gaussian_splatting_with_eye_tracking_tpu_torch.ops import (
+            binning, blend, expand, projection)
 
         self.saved = [(expand, "expand_rows_by_segments"), (blend, "blend_fwd"),
                       (blend, "blend_round"), (blend, "blend_levels"),
-                      (projection, "preprocess_kernel")]
+                      (projection, "preprocess_kernel"),
+                      (binning, "build_sorted_instances_kernel")]
         self.saved = [(m, name, getattr(m, name)) for m, name in self.saved]
         expand.expand_rows_by_segments = expand.expand_rows_by_segments_plain
         projection.preprocess_kernel = projection.preprocess_plain
+        binning.build_sorted_instances_kernel = binning.build_sorted_instances_plain
         blend.blend_fwd = blend.blend_fwd_plain
 
         def round_plain(*a, offx, offy, counts_override=None, order=None, split=1):
@@ -2373,7 +2511,7 @@ def studies_phase(tmp):
             raise AssertionError(f"AMR_test {tag}: {flags}, rect pairs {doc['rect_pairs']} "
                                  f"of {doc['enumerated']} enumerated")
         need_launches(f"AMR_test {tag}", launches,
-                      {"expand_seg": 3, "blend_fwd": 2, "blend_round": 4}, ("blend_levels",))
+                      {"binning": 3, "blend_fwd": 2, "blend_round": 4}, ("blend_levels",))
         model, deg, active, cam, bg = view(argv)
         doc["amr_frame_err"] = hold_frame(
             f"AMR_test {tag} 5-step frame",
@@ -2389,7 +2527,7 @@ def studies_phase(tmp):
                         synthetic + size + ["--out_dir", os.path.join(tmp, "kdtree")])
     if doc["kept"] != int(0.5 * doc["active_gaussians"]) + 1:
         raise AssertionError(f"KDtree_test kept {doc['kept']} of {doc['active_gaussians']}")
-    need_launches("KDtree_test", launches, {"expand_seg": 3, "blend_fwd": 3},
+    need_launches("KDtree_test", launches, {"binning": 3, "blend_fwd": 3},
                   ("blend_round", "blend_levels"))
     keep = KDtree_test.nearest(model[0], cam.campos, active, 0.5)
     doc["pruned_frame_err"] = hold_frame(
@@ -2404,7 +2542,7 @@ def studies_phase(tmp):
         if not (doc["psnr_quantized_residual_db"] >= 100
                 and math.isfinite(doc["psnr_quantized_db"])):
             raise AssertionError(f"opacity_quant_test {bits} bits: {doc}")
-        need_launches(f"opacity_quant_test {bits}", launches, {"expand_seg": 4, "blend_fwd": 4},
+        need_launches(f"opacity_quant_test {bits}", launches, {"binning": 4, "blend_fwd": 4},
                       ("blend_round", "blend_levels"))
         doc["quantized_frame_err"] = hold_frame(
             f"opacity_quant_test {bits} bits quantized frame",
@@ -2442,7 +2580,7 @@ def studies_phase(tmp):
             raise AssertionError(f"amr_quality_sweep {r['workload']}: {r}")
     frames = len(rows) * 9  # a workload's capacity probe, then its 8 frames
     need_launches("amr_quality_sweep", launches,
-                  {"expand_seg": frames, "blend_levels": frames},
+                  {"binning": frames, "blend_levels": frames},
                   ("blend_fwd", "blend_round"))
     with open(os.path.join(tmp, "amr_quality.json")) as f:
         if json.load(f) != json.loads(json.dumps(doc)):
@@ -2518,7 +2656,7 @@ def numerics_phase(tmp):
         f"{json.dumps(doc['step']['excess'])}; exact {json.dumps(doc['step']['exact'])}; "
         f"launches {launches}")
     numerics_clean(f"step {nm.ITERATION}", doc)
-    need_launches("numerics repro", launches, {k: 1 for k in ("expand_seg", "blend_fwd",
+    need_launches("numerics repro", launches, {k: 1 for k in ("binning", "blend_fwd",
                                                               "blend_bwd", "segsum")})
 
     # the SSIM checks' controls: the fault they guard, made on purpose
@@ -2549,7 +2687,7 @@ def numerics_phase(tmp):
         f"{window['active']}; launches {launches}")
     numerics_clean("the window", window)
     need_launches("numerics window", launches, {k: nm.WINDOW_STEPS for k in (
-        "expand_seg", "blend_fwd", "blend_bwd", "segsum")})
+        "binning", "blend_fwd", "blend_bwd", "segsum")})
 
     out["degenerate"] = [nm.degenerate_check(opacity, scale) for opacity, scale in nm.DEGENERATE]
     for d in out["degenerate"]:
@@ -2647,7 +2785,7 @@ def main() -> int:
     launches = {kern.name: kern.launches for kern in backend.kernels()}
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     log(f"served {len(cams)} requests; launches {launches}; peak memory {peak_mb:.0f} MiB")
-    for name in ("preprocess", "expand_seg", "blend_fwd"):
+    for name in ("preprocess", "binning", "blend_fwd"):
         if launches[name] < len(cams):
             raise AssertionError(f"{name} ran {launches[name]} times for {len(cams)} requests")
     if launches["blend_bwd"] or launches["segsum"]:
@@ -2725,6 +2863,7 @@ def main() -> int:
             raise AssertionError("chunks_done is not tile-uniform")
 
         prep_k7 = preprocess_phase(dev)
+        bin_k8 = binning_phase(dev)
 
         # -- 6. timings ------------------------------------------------------
         view_ms = [cuda_ms(lambda c=c: render(state, *train_lib.camera_arrays(c.params()),
@@ -2898,6 +3037,11 @@ def main() -> int:
          "replaces": REPLACES["preprocess"], "launches": launches["preprocess"],
          **{k: prep_k7["300k"][k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms")},
          "bound_by": "bytes", "library_ms": None, "shapes": prep_k7, **build["preprocess"]},
+        {"name": "binning", "route": "cuda", "source": src.format("binning"),
+         "replaces": REPLACES["binning"], "launches": launches["binning"],
+         **{k: bin_k8["300k"][k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms")},
+         "bound_by": "bytes", "library_ms": None, "shapes": bin_k8,
+         **ptxas_report(backend, "binning")},
         {"name": "expand_seg", "route": "cuda", "source": src.format("expand_seg"),
          "replaces": REPLACES["expand_seg"], "launches": launches["expand_seg"],
          "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,

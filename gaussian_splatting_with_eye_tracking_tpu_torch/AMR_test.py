@@ -5,7 +5,7 @@ overlay.
 
 Port of the repository's root ``AMR_test.py`` (the reference's
 ``AMR_test.py`` with ``AMR_test_cuda.py:209-218``). The production side is
-``amr.fovea_step0`` (preprocess, binning with the expand kernel, the
+``amr.fovea_step0`` (preprocess, binning through its pipeline K8, the
 percentile levels). The oracle re-derives from the same preprocessed
 gaussians, in NumPy, every (gaussian, tile) pair of their tile rects, and
 holds three things exactly:
@@ -20,8 +20,8 @@ The root script compares the rect counts, taken before the cull, with the
 kept ones and the levels of the one with those of the other, so both its
 flags read False on every scene; they are returned here too
 (``rect_counts_match``, ``rect_levels_match``). The frames go through
-``rasterize`` (the expand and tile-compositor kernels) and
-``amr.render_amr`` (the expand kernel, then the four AMR rounds) at
+``rasterize`` (the binning and tile-compositor kernels) and
+``amr.render_amr`` (the binning pipeline, then the four AMR rounds) at
 bench's front camera::
 
     python -m gaussian_splatting_with_eye_tracking_tpu_torch.AMR_test --synthetic --width 1920 --height 1088

@@ -4,7 +4,7 @@ fused frame, over scene densities and decimations, with a side-by-side
 image.
 
 Port of the repository's root ``amr_quality_sweep.py``. Every frame is
-``amr.render_amr_fused`` (binning with the expand kernel, then one launch
+``amr.render_amr_fused`` (binning through its pipeline, then one launch
 of the fused levels kernel) at bench's front camera, gaze at the image
 centre and rings (H/8, H/4, H/2). Each decimation, (2,2,1,1), (4,2,1,1)
 and (8,4,2,1), is rendered in the kernel and at binning time

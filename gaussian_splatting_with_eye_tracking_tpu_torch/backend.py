@@ -42,9 +42,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-# flags of one source on top of NVCC_FLAGS: K7 rounds every product and
-# sum on its own, as the plain PyTorch version's elementwise kernels do
-SOURCE_FLAGS = {"preprocess": ["-fmad=false"]}
+# flags of one source on top of NVCC_FLAGS: K7 and K8's cull round every
+# product and sum on their own, as the plain PyTorch versions' elementwise
+# kernels do
+SOURCE_FLAGS = {"preprocess": ["-fmad=false"], "binning": ["-fmad=false"]}
 
 _LIBS: dict[str, Path] = {}
 _KERNELS: list["CudaKernel"] = []
@@ -204,15 +205,21 @@ def check_aligned(name: str, t: torch.Tensor, nbytes: int = 16):
         raise ValueError(f"{name}: data is not {nbytes}-byte aligned")
 
 
+def library_function(stem: str, symbol: str, argtypes: list, restype):
+    """A C function of the library built from ``csrc/<stem>.cu`` that is
+    not a launch (a size or occupancy query), typed for ctypes."""
+    if stem not in _LIBS:
+        build_kernels()
+    fn = getattr(ctypes.CDLL(str(_LIBS[stem])), symbol)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    return fn
+
+
 def blocks_per_sm(stem: str) -> int:
     """CTAs of the kernel in ``csrc/<stem>.cu`` resident per SM, from its
     ``<stem>_blocks_per_sm`` entry (the CUDA runtime's occupancy query)."""
-    if stem not in _LIBS:
-        build_kernels()
-    fn = getattr(ctypes.CDLL(str(_LIBS[stem])), f"{stem}_blocks_per_sm")
-    fn.argtypes = []
-    fn.restype = ctypes.c_int
-    blocks = fn()
+    blocks = library_function(stem, f"{stem}_blocks_per_sm", [], ctypes.c_int)()
     if blocks < 0:
         raise RuntimeError(f"{stem}: occupancy query failed with CUDA error {-blocks}")
     return blocks

@@ -5,7 +5,7 @@ SH-3 scene (``bench_scene``) seen by its front camera at 1920x1088, at
 its instance capacities (1,638,400 enumerated, 1,441,792 live; a probe
 raises on overflow before anything is timed). The loss mean(color^2) is
 differentiated with respect to the means through the port's autograd
-path: preprocess, binning with the expand kernel, the tile compositor,
+path: preprocess, binning (the pipeline K8), the tile compositor,
 and in the backward the backward compositor and the per-gaussian segment
 sum. Forward and backward together are timed with CUDA events: a
 warm-up, then the median of ``REPS`` runs. Prints the card's name and

@@ -24,10 +24,10 @@
 // TPU kernels built a one-hot selection matrix and ran three bf16-limb
 // MXU products to move data exactly, over DMA'd column windows.
 //
-// K1's design for this card: a block-level load-balancing search. Each
-// CTA owns a run of K1_RUN (2,048) consecutive slots. Two warps find the
-// run's first and last slots' columns with a 32-ary warp search over the
-// seg row (five rounds of 32 loads where a thread-per-slot binary search
+// K1's design for this card: a block-level load-balancing search
+// (segsearch.cuh, shared with K8 in binning.cu). Each CTA owns a run of
+// K1_RUN (2,048) consecutive slots. Two warps find the run's first and
+// last slots' columns with a 32-ary warp search over the seg row (five rounds of 32 loads where a thread-per-slot binary search
 // made ~19 dependent loads per slot). The segment starts are
 // nondecreasing, so every slot of the run falls in that column window;
 // the CTA stages the window's rows (one table column per thread and row,
@@ -48,6 +48,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segsearch.cuh"
+
 namespace {
 
 __device__ __forceinline__ void copy_column(const float* __restrict__ table,
@@ -65,41 +67,6 @@ constexpr int K1_GROUPS = 2;  // groups per thread, K1_THREADS * K1_GROUP slots 
 constexpr int K1_RUN = K1_THREADS * K1_GROUP * K1_GROUPS;  // slots per CTA
 constexpr int K1_ROWS = 16;   // rows staged
 constexpr int K1_WMAX = 512;  // columns staged: 32 KB of shared memory, 6 CTAs per SM
-
-// First index i in [0, n) with seg[i] > v, or n (seg nondecreasing): a
-// 32-ary search by the whole warp, the same answer in every lane.
-__device__ __forceinline__ int warp_upper_bound(const float* __restrict__ seg, int n,
-                                                float v) {
-  const int lane = threadIdx.x % 32;
-  int lo = 0, hi = n;  // the answer lies in [lo, hi]
-  while (hi - lo > 32) {
-    const int step = (hi - lo + 31) / 32;
-    const int first = lo + lane * step;
-    const int last = min(first + step, hi) - 1;
-    const unsigned m = __ballot_sync(0xffffffffu, first < hi && __ldg(seg + last) > v);
-    if (m == 0u) return hi;
-    const int piece = __ffs(m) - 1;
-    hi = min(lo + (piece + 1) * step, hi) - 1;
-    lo = lo + piece * step;
-  }
-  const int q = lo + lane;
-  const unsigned m = __ballot_sync(0xffffffffu, q < hi && __ldg(seg + q) > v);
-  return m ? lo + __ffs(m) - 1 : hi;
-}
-
-// First index in [lo, hi) with seg[i] > v, or hi (seg nondecreasing).
-template <typename Seg>
-__device__ __forceinline__ int upper_bound_in(Seg seg, int lo, int hi, float v) {
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (seg(mid) > v) {
-      hi = mid;
-    } else {
-      lo = mid + 1;
-    }
-  }
-  return lo;
-}
 
 __global__ void __launch_bounds__(K1_THREADS, 6)
 expand_seg_kernel(const float* __restrict__ table, int rows, int nc, int seg_row,

@@ -6,7 +6,7 @@ Port of the repository's root ``fps_test.py`` (the reference's
 random 100k-gaussian scene is rendered by bench's front camera (z = -5,
 60 degrees) at each resolution, through ``rasterize`` (the expand and
 tile-compositor kernels) or, in AMR mode, the 5-step foveated frame
-``amr.render_amr`` (the expand kernel and the four AMR rounds). Each
+``amr.render_amr`` (the binning pipeline and the four AMR rounds). Each
 resolution is timed with CUDA events around the call: a warm-up, then
 the median of ``REPS`` runs. Writes ``fps_data_{vanilla,amr}.json``::
 

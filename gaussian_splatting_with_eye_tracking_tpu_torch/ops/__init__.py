@@ -1,2 +1,2 @@
-"""Rasterizer ops: transforms, sh, projection, expand (K1), binning, blend
-(K2), rasterize."""
+"""Rasterizer ops: transforms, sh, projection (K7), expand (K1), binning (K8),
+blend (K2), rasterize."""

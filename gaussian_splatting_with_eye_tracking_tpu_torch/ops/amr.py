@@ -144,8 +144,7 @@ def fovea_step0(means3d, scales, quats, opacities, sh, sh_degree, cam: CameraPar
             prep.means2d, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched,
             prep.rect_min, prep.rect_max, prep.cull_thr, prep.depths, grid_x, grid_y,
             max_instances, tile_px=TILE, gaze_decim=gaze_decim)
-        b = si.binning
-        feat_soa = blend.feat_soa_from_rows(si.feat_rows, blend.CHUNK)
+        b, feat_soa = si.binning, si.feat_soa
     with tracing.span("gs.levels"):
         if predecimate is not None:
             levels = gaze_levels(torch.full((grid_x * grid_y,), 4, dtype=torch.int32,

@@ -2,13 +2,21 @@
 
 Port of ``Binning``, ``SortedInstances``, ``_tile_ellipse_kept``,
 ``gaze_decimation_keep`` and ``build_sorted_instances`` from
-``gaussian_splatting_with_eye_tracking_tpu/ops/binning.py``. The pipeline:
+``gaussian_splatting_with_eye_tracking_tpu/ops/binning.py``. On CUDA
+tensors ``build_sorted_instances`` launches the hand-written pipeline K8
+(``csrc/binning.cu``, ``build_sorted_instances_kernel``): the tile scan,
+the cull of every enumerated pair into a bitmask, the kept pairs' keys
+written at their kept-order index, one radix sort of the keys'
+significant bits, and one layout launch that writes the compositors'
+(FEAT, K') rows, the CSR offsets and the per-gaussian ranges: two launch
+calls, 22 device operations, no synchronisation. On CPU tensors it runs
+the plain version, ``build_sorted_instances_plain``:
 
   1. compact the live gaussians' 16 attribute columns, keeping their
      original order (a stable sort on the dead flag);
   2. run-length expand the compact table to the enumeration's K slots
-     (``ops/expand.py``, kernel K1 on CUDA): slot k's gaussian attributes
-     with no per-slot index vector;
+     (``ops/expand.py``; kernel K1 on a CUDA tensor): slot k's gaussian
+     attributes with no per-slot index vector;
   3. decode each slot's tile, cull it with the exact ellipse-vs-tile test,
      and sort the slots once on a packed int64 (tile, depth rank) key; the
      10 feature rows follow the sort permutation and form the blend
@@ -18,22 +26,38 @@ Port of ``Binning``, ``SortedInstances``, ``_tile_ellipse_kept``,
      order (``id_pos``), from the same permutation.
 
 Kept instances have unique keys, so ``gauss_id[:num_instances]`` and the
-feature rows there are exactly the JAX package's; dead slots tie and may
-come in another order.
+feature rows there are exactly the JAX package's, and K8's equal the
+plain version's bit for bit on every field of the listed instances; dead
+lanes (past the listed instances) may differ: K8 leaves zeros there.
 
 ``bin_gaussians`` is the port of the JAX function of that name, the
 binning of the ``impl="jnp"`` oracle path: the same list by another route
 (a gather per slot from a prefix sum of start marks, no expand, no
-feature rows), for cross-checks of the route above.
+feature rows), for cross-checks of the routes above.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
 
+from gaussian_splatting_with_eye_tracking_tpu_torch import backend, tracing
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import expand as expand_ops
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_GAUSSIANS = [_P] * 9  # means2d, conics, rgb, opacities, tiles, rect_min, rect_max, cull_thr, depths
+BINNING_SORT = backend.CudaKernel(
+    "binning", "binning", "binning_sort_launch",
+    _GAUSSIANS + [_I] * 7 + [_P, _P] + [_I] * 4 + [_P, ctypes.c_longlong, _P, _P, _P,
+                                                  ctypes.POINTER(ctypes.c_int), _P],
+)
+BINNING_LAYOUT = backend.CudaKernel(
+    "binning_layout", "binning", "binning_layout_launch",
+    _GAUSSIANS + [_I] * 7 + [_P, ctypes.c_longlong] + [_P] * 7 + [_P],
+)
 
 
 class Binning(NamedTuple):
@@ -58,6 +82,13 @@ class SortedInstances(NamedTuple):
     # order (gaussian g's instances fill [gauss_start[g], gauss_start[g] +
     # gauss_count[g])); max_instances past the live instances
     id_pos: torch.Tensor
+    # (FEAT, K') f32 the compositors' input: ``lead`` empty lanes, then
+    # feat_rows, zero-padded to a chunk multiple (``blend.feat_soa_from_rows``);
+    # K8 writes it directly, feat_rows is then a view of it. Rows 10-15,
+    # which no compositor reads, are zeros in the plain version's and
+    # unwritten in K8's
+    feat_soa: torch.Tensor
+    lead: int
 
 
 def _tile_ellipse_kept(tx, ty, cx, cy, ca, cb, cc, thr, tile_px):
@@ -242,7 +273,7 @@ def compact_table(means2d, conics, rgb, opacities, tiles_touched, rect_min,
 def build_sorted_instances(
     means2d, conics, rgb, opacities, tiles_touched, rect_min, rect_max,
     cull_thr, depths, grid_x: int, grid_y: int, max_instances: int,
-    tile_px: int, max_live: int | None = None, gaze_decim=None,
+    tile_px: int, max_live: int | None = None, gaze_decim=None, lane_offset=None,
 ) -> SortedInstances:
     """Depth-sorted CSR instance list and its feature rows.
 
@@ -250,7 +281,116 @@ def build_sorted_instances(
     tile-in-rect pair), ``max_live`` the instances that survive the
     ellipse cull into the sorted list; ``overflow`` reports either.
     ``gaze_decim`` = (gaze_xy (2,), radii (3,), four per-level steps) also
-    drops the instances ``gaze_decimation_keep`` rejects."""
+    drops the instances ``gaze_decimation_keep`` rejects. ``lane_offset``,
+    if given, maps ``num_instances`` to the empty lanes put before the
+    instances in ``feat_soa`` (``blend.Splat``'s bands).
+
+    K8 (``build_sorted_instances_kernel``) on CUDA tensors, the plain
+    version on CPU tensors. Counts ``gs.binning.pairs`` (the enumerated
+    pairs, a device scalar) while tracing is on; K8 counts them again as
+    ``gs.binning.kernel``."""
+    route = (build_sorted_instances_plain if means2d.device.type == "cpu"
+             else build_sorted_instances_kernel)
+    si = route(means2d, conics, rgb, opacities, tiles_touched, rect_min, rect_max,
+               cull_thr, depths, grid_x, grid_y, max_instances, tile_px, max_live=max_live,
+               gaze_decim=gaze_decim, lane_offset=lane_offset)
+    tracing.count("gs.binning.pairs", si.binning.num_enumerated)
+    return si
+
+
+@functools.lru_cache(maxsize=64)
+def _workspace_bytes(n: int, k: int, end_bit: int) -> int:
+    """Bytes of K8's workspace (its buffers and CUB's sort storage, whose
+    size CUB's query gives once per shape here)."""
+    query = backend.library_function("binning", "binning_workspace_bytes", [_I, _I, _I],
+                                     ctypes.c_longlong)
+    size = query(n, k, end_bit)
+    if size < 0:
+        raise RuntimeError(f"binning: workspace query failed with CUDA error {-size}")
+    return size
+
+
+def build_sorted_instances_kernel(
+    means2d, conics, rgb, opacities, tiles_touched, rect_min, rect_max,
+    cull_thr, depths, grid_x: int, grid_y: int, max_instances: int,
+    tile_px: int, max_live: int | None = None, gaze_decim=None, lane_offset=None,
+) -> SortedInstances:
+    """``build_sorted_instances_plain`` by K8 (``csrc/binning.cu``): two
+    launch calls, one workspace from the caching allocator, no
+    synchronisation (but ``lane_offset``'s own). Every field is the plain
+    version's on the listed instances; dead lanes hold zeros (``gauss_id``
+    0, ``tile_id`` num_tiles, ``id_pos`` max_instances, as there)."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend
+
+    if max_live is None:
+        max_live = max_instances
+    max_live = min(max_live, max_instances)
+    f32, i32 = torch.float32, torch.int32
+    # the plain preprocess hands out views (depths is a column of p_view)
+    gauss = tuple(t.contiguous() for t in (means2d, conics, rgb, opacities, tiles_touched,
+                                           rect_min, rect_max, cull_thr, depths))
+    for name, t, dtype in zip(("means2d", "conics", "rgb", "opacities", "tiles_touched",
+                               "rect_min", "rect_max", "cull_thr", "depths"), gauss,
+                              (f32, f32, f32, f32, i32, i32, i32, f32, f32)):
+        backend.check_cuda_tensor(name, t, dtype)
+    n = tiles_touched.shape[0]
+    num_tiles = grid_x * grid_y
+    if not 0 < n < 1 << 31 or not 0 < max_instances < 1 << 31:
+        raise ValueError(f"binning: {n} gaussians, capacity {max_instances}")
+    if not 0 < grid_x < 1024 or not 0 < grid_y < 1024:
+        raise ValueError(f"binning: a {grid_x}x{grid_y} grid (under 1024 tiles a side)")
+    dev = means2d.device
+    end_bit = 32 + num_tiles.bit_length()  # depth bits below the tile (sentinel included)
+    ws_bytes = _workspace_bytes(n, max_instances, end_bit)
+    ws = torch.empty(ws_bytes, dtype=torch.uint8, device=dev)
+    num_instances = torch.empty((), dtype=i32, device=dev)
+    num_enumerated = torch.empty((), dtype=i32, device=dev)
+    overflow = torch.empty((), dtype=torch.bool, device=dev)
+    gaze_xy = gaze_radii = None
+    steps = (1, 1, 1, 1)
+    if gaze_decim is not None:
+        gxy, g_radii, g_steps = gaze_decim
+        gaze_xy = torch.as_tensor(gxy, dtype=f32, device=dev).contiguous()
+        gaze_radii = torch.as_tensor(g_radii, dtype=f32, device=dev).contiguous()
+        steps = tuple(int(x) for x in g_steps)
+    stream = backend.stream_ptr(means2d)
+    ptrs = [t.data_ptr() for t in gauss]
+    selector = ctypes.c_int(-1)
+    BINNING_SORT(*ptrs, n, max_instances, max_live, grid_x, num_tiles, tile_px, end_bit,
+                 None if gaze_xy is None else gaze_xy.data_ptr(),
+                 None if gaze_radii is None else gaze_radii.data_ptr(), *steps,
+                 ws.data_ptr(), ws_bytes, num_instances.data_ptr(), num_enumerated.data_ptr(),
+                 overflow.data_ptr(), ctypes.byref(selector), stream)
+    lead = 0 if lane_offset is None else int(lane_offset(num_instances))
+    kp = lead + max_live + (-(lead + max_live)) % blend.CHUNK
+    feat_soa = torch.empty((blend.FEAT, kp), dtype=f32, device=dev)
+    gauss_id = torch.empty(max_live, dtype=i32, device=dev)
+    tile_id = torch.empty(max_live, dtype=i32, device=dev)
+    id_pos = torch.empty(max_live, dtype=torch.int64, device=dev)
+    offsets = torch.empty(num_tiles + 1, dtype=i32, device=dev)
+    gauss_start = torch.empty(n, dtype=i32, device=dev)
+    gauss_count = torch.empty(n, dtype=i32, device=dev)
+    BINNING_LAYOUT(*ptrs, n, max_instances, max_live, num_tiles, selector.value,
+                   lead, kp, ws.data_ptr(), ws_bytes, feat_soa.data_ptr(), gauss_id.data_ptr(),
+                   tile_id.data_ptr(), id_pos.data_ptr(), offsets.data_ptr(),
+                   gauss_start.data_ptr(), gauss_count.data_ptr(), stream)
+    tracing.count("gs.binning.kernel", num_enumerated)
+    b = Binning(gauss_id=gauss_id, tile_id=tile_id, offsets=offsets,
+                num_instances=num_instances, num_enumerated=num_enumerated, overflow=overflow,
+                gauss_start=gauss_start, gauss_count=gauss_count)
+    return SortedInstances(binning=b, feat_rows=feat_soa[:10, lead:lead + max_live],
+                           id_pos=id_pos, feat_soa=feat_soa, lead=lead)
+
+
+def build_sorted_instances_plain(
+    means2d, conics, rgb, opacities, tiles_touched, rect_min, rect_max,
+    cull_thr, depths, grid_x: int, grid_y: int, max_instances: int,
+    tile_px: int, max_live: int | None = None, gaze_decim=None, lane_offset=None,
+) -> SortedInstances:
+    """``build_sorted_instances`` as tensor operations (the module's
+    docstring), on any device."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend
+
     if max_live is None:
         max_live = max_instances
     max_live = min(max_live, max_instances)
@@ -328,4 +468,7 @@ def build_sorted_instances(
         gauss_start=live_start.to(torch.int32),
         gauss_count=live_count.to(torch.int32),
     )
-    return SortedInstances(binning=b, feat_rows=feat_rows, id_pos=id_pos)
+    lead = 0 if lane_offset is None else int(lane_offset(b.num_instances))
+    return SortedInstances(binning=b, feat_rows=feat_rows, id_pos=id_pos,
+                           feat_soa=blend.feat_soa_from_rows(feat_rows, blend.CHUNK, lead),
+                           lead=lead)

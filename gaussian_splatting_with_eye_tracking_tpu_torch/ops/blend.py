@@ -648,7 +648,7 @@ def id_order_table(dfeat, id_pos, gauss_start, gauss_count, max_instances):
 
 class Splat(torch.autograd.Function):
     """Differentiable binning + tile compositing: the ``splat_pallas``
-    contract. Forward: ``build_sorted_instances`` (K1) and K2; returns
+    contract. Forward: ``build_sorted_instances`` (K8) and K2; returns
     (tiles (T, P, OUTC), num_instances, num_enumerated, overflow).
     Backward: K3 and the per-gaussian gather-and-sum (K4); returns
     d xy, d conic, d rgb, d opacity per gaussian (nothing for the binning
@@ -666,11 +666,9 @@ class Splat(torch.autograd.Function):
             si = binning_ops.build_sorted_instances(
                 xy, conics, rgb, opacities, tiles_touched, rect_min, rect_max,
                 cull_thr, depths, grid_x, grid_y, max_instances, tile_px=TILE,
-                max_live=max_live,
+                max_live=max_live, lane_offset=lane_offset,
             )
-            b = si.binning
-            lead = 0 if lane_offset is None else lane_offset(b.num_instances)
-            feat_soa = feat_soa_from_rows(si.feat_rows, CHUNK, lead)
+            b, lead, feat_soa = si.binning, si.lead, si.feat_soa
             offsets = b.offsets + lead if lead else b.offsets
         tiles = blend_fwd(feat_soa, offsets, grid_x, grid_y)
         ctx.save_for_backward(feat_soa, offsets, tiles, b.gauss_start,

@@ -24,8 +24,7 @@ K7 writes the plain record as the plain version computes it on the card,
 each float rounded alike (so the integer fields, radii, tiles_touched and
 the rects, are equal); one field differs by design: a culled slot's
 ``rgb`` is 0 (its SH row is never read). Nothing reads a culled slot's colour:
-its ``tiles_touched`` is 0, so binning's ``compact_table`` marks it dead
-and sorts it past the live ones, and no instance of it is enumerated.
+its ``tiles_touched`` is 0, so binning enumerates no instance of it.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Port of ``RenderOut``, ``rasterize`` and ``mark_visible`` from
 (ops/projection.py), then one of two implementations, as ``impl`` says:
 
 - ``"kernels"`` (also ``"auto"``; the JAX package's ``"pallas"``): the
-  differentiable splat (ops/blend.Splat: binning with the expand kernel,
+  differentiable splat (ops/blend.Splat: binning, the pipeline K8,
   the tile compositor forward, and in the backward the backward
   compositor and the segment sum) -> image assembly: the CUDA kernels on
   CUDA tensors, their plain PyTorch versions on CPU tensors;

@@ -25,7 +25,7 @@ of n devices is a ``Mesh`` of n ranks (``make_mesh``).
   and Adam and the statistics run on the local rows.
 
 A band composites through ``ops/blend.render_tiles`` (``impl="kernels"``,
-also ``"auto"``: the hand-written kernels K1-K4 on CUDA tensors, their
+also ``"auto"``: the hand-written kernels K8, K2-K4 on CUDA tensors, their
 plain versions on CPU tensors; JAX's ``render_tiles_pallas``) or
 ``binning.bin_gaussians`` + ``tile_blend.render_tiles_jnp``
 (``impl="jnp"``, the oracles). The steps return ``(state, aux)`` with

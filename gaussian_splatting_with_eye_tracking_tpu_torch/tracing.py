@@ -53,8 +53,11 @@ The counters: ``gs.preprocess.rows`` (the rows ``preprocess`` was given),
 ``gs.preprocess.kernel`` (the rows that went through its hand-written
 kernel, K7; none on the CPU or where a gradient may be taken),
 ``gs.gaze.eyes`` (the eye images of one ``estimate_gaze`` forward: 1, or
-2 for a headset's pair) and ``gs.fovea.instances`` (the instances a
-foveated view binned, ``num_instances``: a device scalar).
+2 for a headset's pair), ``gs.fovea.instances`` (the instances a
+foveated view binned, ``num_instances``: a device scalar),
+``gs.binning.pairs`` (the enumerated pairs handed to binning,
+``num_enumerated``: a device scalar) and ``gs.binning.kernel`` (those
+binned by its hand-written pipeline, K8; none on the CPU).
 """
 
 from __future__ import annotations

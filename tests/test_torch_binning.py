@@ -124,3 +124,34 @@ def test_enumeration_overflow():
                  "num_instances", "num_enumerated", "overflow"):
         assert_equal(getattr(got.binning, name), getattr(want.binning, name), msg=name)
     assert bool(got.binning.overflow)
+
+
+def test_cpu_tensors_take_the_plain_route(monkeypatch):
+    """On CPU tensors ``build_sorted_instances`` is the plain version,
+    field for field, K8's wrapper never called; ``feat_soa`` is the
+    compositors' padding of ``feat_rows`` after ``lane_offset``'s lanes."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend as tblend
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("K8's wrapper was called on the CPU")
+
+    monkeypatch.setattr(tbin, "build_sorted_instances_kernel", refuse)
+    args, gx, gy = _prep(700, 14)
+    args = [to_torch(a) for a in args]
+    got = tbin.build_sorted_instances(*args, gx, gy, CAP, 32, lane_offset=lambda n: 37)
+    want = tbin.build_sorted_instances_plain(*args, gx, gy, CAP, 32)
+    for name in want.binning._fields:
+        assert_equal(getattr(got.binning, name), getattr(want.binning, name), msg=name)
+    assert_equal(got.id_pos, want.id_pos)
+    assert got.lead == 37 and want.lead == 0
+    assert_equal(got.feat_soa, tblend.feat_soa_from_rows(want.feat_rows, tblend.CHUNK, 37))
+    assert_equal(want.feat_soa, tblend.feat_soa_from_rows(want.feat_rows, tblend.CHUNK))
+
+
+def test_kernel_route_refuses_cpu_tensors():
+    args, gx, gy = _prep(50, 15)
+    args = [to_torch(a) for a in args]
+    before = tbin.BINNING_SORT.launches, tbin.BINNING_LAYOUT.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        tbin.build_sorted_instances_kernel(*args, gx, gy, CAP, 32)
+    assert (tbin.BINNING_SORT.launches, tbin.BINNING_LAYOUT.launches) == before

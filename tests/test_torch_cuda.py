@@ -27,7 +27,14 @@ opacity and colour 0, the floats within ``chip_smoke.PREP_TOL`` of
 max(1, |plain|), on the 300k scene, a capacity-padded state, SH degrees
 0-3, a frame whose sides are not multiples of 32 and edge inputs (the near
 plane, the frame's edges, det = 0); the whole render through K7 bit for
-bit the plain path's; a call that may need a gradient never launches it."""
+bit the plain path's; a call that may need a gradient never launches it.
+The binning pipeline (K8) against ``build_sorted_instances_plain`` on the
+card (``chip_smoke.binning_mismatch``): every field bit for bit on the
+listed instances and K2's and K5's outputs through either list equal, on
+the 300k front view (``max_live`` below the capacity), 1M gaussians at
+2^23, both overflows, the gaze decimation, a band's lane offset, a frame
+not a multiple of 32, no live gaussian and one gaussian over many tiles;
+two calls equal; three train steps through it equal the plain route's."""
 
 import numpy as np
 import pytest
@@ -852,7 +859,7 @@ def test_sweep_regrows_an_overflowing_capacity(dev, amr_mode, tmp_path, monkeypa
 
 def test_parity_probe_gates(dev):
     """The card parity probe (kernels against the jnp oracles at 256x256,
-    4,000 gaussians): every gate met, K1-K4 and the round kernel launched."""
+    4,000 gaussians): every gate met, K8, K2-K4 and the round kernel launched."""
     from gaussian_splatting_with_eye_tracking_tpu_torch import backend, parity_probe
 
     for kern in backend.kernels():
@@ -860,7 +867,7 @@ def test_parity_probe_gates(dev):
     res = parity_probe.run(dev, knn_points=5_000, knn_dup=1_000)
     launches = {kern.name: kern.launches for kern in backend.kernels()}
     assert res["ok"], res["failed"]
-    assert all(launches[k] >= 1 for k in ("expand_seg", "blend_fwd", "blend_bwd", "segsum"))
+    assert all(launches[k] >= 1 for k in ("binning", "blend_fwd", "blend_bwd", "segsum"))
     assert launches["blend_round"] >= 4
 
 
@@ -1166,3 +1173,127 @@ def test_preprocess_kernel_refuses_what_it_does_not_take(dev):
         with pytest.raises(ValueError):
             preprocess(*g, 3, cam, active_mask=torch.ones(500, dtype=torch.int32, device=dev))
     assert projection.PREPROCESS.launches == before
+
+
+def _k8_case(case, dev):
+    """(binning inputs, grid_x, grid_y, max_instances, kwargs) of a K8 case."""
+    w, h, cap, kw = cs.W, cs.H, cs.MAX_INSTANCES, {}
+    if case == "scene1m":  # 1M gaussians in 4,194,304 slots, a head-path view, 2^23
+        g, active = cs.preprocess_inputs(1_000_000, 1 << 22, 2, dev)
+        cam = cs.view_request(4.0, -3.0).params(device=dev)
+        prep = preprocess(*g, 3, cam, tile=32, active_mask=active)
+        cap = 1 << 23
+    elif case == "odd_frame":  # 1000x700: the last tile column 8 px, the last row 28
+        args, kw7 = _k7_case("odd_frame", dev)
+        prep, (w, h), cap = preprocess(*args, **kw7), (1000, 700), 1 << 20
+    elif case == "no_live":  # every slot inactive: no tile touched
+        g = [x.to(dev) for x in random_scene(2000, seed=3, sh_degree=1)]
+        prep = preprocess(*g, 1, front_camera(256, 192, dev), tile=32,
+                          active_mask=torch.zeros(2000, dtype=torch.bool, device=dev))
+        w, h, cap = 256, 192, 1 << 12
+    elif case == "one_gaussian":  # one gaussian over most of a 640x480 frame
+        f32 = dict(dtype=torch.float32, device=dev)
+        g = [torch.zeros((1, 3), **f32), torch.full((1, 3), 0.8, **f32),
+             torch.tensor([[1.0, 0.0, 0.0, 0.0]], **f32), torch.full((1,), 0.9, **f32),
+             torch.full((1, 3, 1), 0.5, **f32)]
+        prep = preprocess(*g, 0, front_camera(640, 480, dev), tile=32)
+        w, h, cap = 640, 480, 1 << 12
+    else:  # the 300k scene's front view
+        _, prep = _front_view_prep(dev)
+        kw = {
+            "front": dict(max_live=cs.MAX_LIVE),
+            "overflow_enumerated": {},
+            "overflow_live": dict(max_live=1 << 20),
+            "overflow_both": dict(max_live=600_000),
+            "gaze_decim": dict(gaze_decim=(torch.tensor([700.0, 400.0], device=dev),
+                                           torch.tensor([136.0, 272.0, 544.0], device=dev),
+                                           (4, 2, 1, 1))),
+            "lane_offset": dict(lane_offset=lambda n: 37),
+        }[case]
+        cap = {"overflow_enumerated": 1 << 20, "overflow_both": 1_200_000}.get(case, cap)
+    args = (prep.means2d, prep.conics, prep.rgb, prep.opacities, prep.tiles_touched,
+            prep.rect_min, prep.rect_max, prep.cull_thr, prep.depths)
+    return args, -(-w // 32), -(-h // 32), cap, kw
+
+
+K8_CASES = ["front", "scene1m", "overflow_enumerated", "overflow_live", "overflow_both",
+            "gaze_decim", "lane_offset", "odd_frame", "no_live", "one_gaussian"]
+
+
+@pytest.mark.parametrize("case", K8_CASES)
+def test_binning_kernel_matches_plain(dev, case):
+    """K8 against ``build_sorted_instances_plain`` on the card: every field
+    bit for bit (``cs.binning_mismatch``), and K2's and K5's outputs
+    through either list equal bit for bit."""
+    args, gx, gy, cap, kw = _k8_case(case, dev)
+    before = binning.BINNING_SORT.launches, binning.BINNING_LAYOUT.launches
+    with torch.no_grad():
+        got = binning.build_sorted_instances(*args, gx, gy, cap, 32, **kw)
+        want = binning.build_sorted_instances_plain(*args, gx, gy, cap, 32, **kw)
+    torch.cuda.synchronize()
+    assert (binning.BINNING_SORT.launches, binning.BINNING_LAYOUT.launches) == (
+        before[0] + 1, before[1] + 1)
+    bad = cs.binning_mismatch(got, want)
+    assert not bad, bad
+    b = want.binning
+    assert bool(b.overflow) == case.startswith("overflow")
+    listed = int(b.offsets[-1])
+    if case == "no_live":
+        assert listed == int(b.num_enumerated) == 0
+    else:
+        assert int(b.num_enumerated) > int(b.num_instances) >= listed > 0
+    if case == "one_gaussian":
+        assert listed >= 100
+    if case == "lane_offset":
+        assert got.lead == 37
+    counts = b.offsets[1:] - b.offsets[:-1]
+    levels = amr.assign_levels(counts).to(torch.int32)
+    for fn in (lambda si: blend.blend_fwd(si.feat_soa, si.binning.offsets + si.lead, gx, gy),
+               lambda si: blend.blend_levels(si.feat_soa, si.binning.offsets + si.lead,
+                                             counts, levels, gx, gy)):
+        a, z = fn(got), fn(want)
+        assert torch.equal(a.view(torch.int32), z.view(torch.int32))
+
+
+def test_binning_kernel_is_deterministic(dev):
+    args, gx, gy, cap, kw = _k8_case("front", dev)
+    a, z = (binning.build_sorted_instances(*args, gx, gy, cap, 32, **kw) for _ in range(2))
+    for name in a.binning._fields:
+        assert torch.equal(getattr(a.binning, name), getattr(z.binning, name)), name
+    assert torch.equal(a.id_pos, z.id_pos)
+    assert torch.equal(a.feat_soa[:10].view(torch.int32), z.feat_soa[:10].view(torch.int32))
+
+
+def test_train_steps_through_k8_are_the_plain_routes(dev, monkeypatch):
+    """Three ``make_train_step`` steps binned by K8 against the same with
+    the plain binning in its place: parameters and both Adam moments bit
+    for bit (K3 reads the feature rows, K4 id_pos and the ranges)."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import train_lib
+    from gaussian_splatting_with_eye_tracking_tpu_torch.config import OptimizationConfig
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
+
+    opt = OptimizationConfig()
+    raw = cs.raw_params(*(x.numpy() for x in random_scene(2000, seed=6, sh_degree=3)))
+    gt = torch.rand((3, 96, 160), generator=torch.Generator().manual_seed(0)).to(dev)
+    cam, bg = front_camera(160, 96, dev), torch.zeros(3, device=dev)
+
+    def three_steps():
+        tx = gm.make_optimizer(opt, 1.0)
+        state = gm.init_training(gm.params_from_jax(raw, device=dev), 3, tx, capacity=4096)
+        step = train_lib.make_train_step(tx, opt, 3, 160, 96, max_instances=1 << 15, device=dev)
+        for _ in range(3):
+            state, aux = step(state, *train_lib.camera_arrays(cam), gt, bg, True)
+        return state, aux
+
+    before = binning.BINNING_SORT.launches
+    got, aux = three_steps()
+    assert binning.BINNING_SORT.launches == before + 3 and int(aux.num_instances) > 0
+    monkeypatch.setattr(binning, "build_sorted_instances_kernel",
+                        binning.build_sorted_instances_plain)
+    want, _ = three_steps()
+    assert binning.BINNING_SORT.launches == before + 3
+    for group in ("params", "mu", "nu"):
+        g = got.params if group == "params" else getattr(got.opt_state, group)
+        w = want.params if group == "params" else getattr(want.opt_state, group)
+        for name in gm.GaussianParams._fields:
+            assert torch.equal(getattr(g, name), getattr(w, name)), (group, name)

@@ -20,7 +20,7 @@ from gaussian_splatting_with_eye_tracking_tpu_torch.models import checkpoint as 
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as tgm
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import ply_io as tply
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet
-from gaussian_splatting_with_eye_tracking_tpu_torch.ops import blend, expand, segsum
+from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning, blend, expand, segsum
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import rasterize as trast
 from gaussian_splatting_with_eye_tracking_tpu_torch.scene.cameras import Camera, MiniCam
 from tests.helpers import make_camera, make_random_gaussians
@@ -212,12 +212,15 @@ def test_eval_render_rejects_model_on_other_device():
     (expand.EXPAND_SEG, "expand_seg.cu"), (expand.EXPAND_ROWS, "expand_seg.cu"),
     (blend.BLEND_FWD, "blend_fwd.cu"),
     (blend.BLEND_BWD, "blend_bwd.cu"), (segsum.SEGSUM, "segsum.cu"),
-    (blend.BLEND_ROUND, "blend_amr.cu"), (blend.BLEND_LEVELS, "blend_amr.cu")])
+    (blend.BLEND_ROUND, "blend_amr.cu"), (blend.BLEND_LEVELS, "blend_amr.cu"),
+    (binning.BINNING_SORT, "binning.cu"), (binning.BINNING_LAYOUT, "binning.cu")])
 def test_kernel_wrappers_bound_to_sources(kernel, source):
     src = backend.CSRC / source
     assert kernel in backend.kernels() and kernel.stem == src.stem
     text = src.read_text()
     assert f'extern "C" int {kernel.symbol}(' in text
+    params = text.split(f'extern "C" int {kernel.symbol}(', 1)[1].split(")", 1)[0]
+    assert len(params.split(",")) == len(kernel.argtypes)  # ctypes passes them by position
     assert 'extern "C" const char* error_string(int code)' in text
     assert "cudaGetLastError()" in text
 

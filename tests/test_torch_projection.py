@@ -161,11 +161,13 @@ def test_preprocess_kernel_refuses_cpu_tensors():
 
 
 def test_preprocess_kernel_builds_without_fma_contraction():
-    """K7's source alone is compiled with -fmad=false (its integers follow
-    the plain version's per-op rounding); the other sources keep the
-    flags, and so their libraries' names."""
-    assert backend._flags(backend.CSRC / "preprocess.cu") == \
-        backend.NVCC_FLAGS + ["-fmad=false"]
+    """K7's source and K8's (whose cull decides which pairs exist) alone
+    are compiled with -fmad=false (their integers follow the plain
+    versions' per-op rounding); the other sources keep the flags, and so
+    their libraries' names."""
+    for stem in ("preprocess", "binning"):
+        assert backend._flags(backend.CSRC / f"{stem}.cu") == \
+            backend.NVCC_FLAGS + ["-fmad=false"]
     for src in backend.CSRC.glob("*.cu"):
-        if src.stem != "preprocess":
+        if src.stem not in ("preprocess", "binning"):
             assert backend._flags(src) == backend.NVCC_FLAGS, src.name

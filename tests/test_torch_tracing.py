@@ -2,7 +2,8 @@
 are the shared no-op and record nothing; under ``torch.profiler`` the
 served view, the foveated view, the gaze and a train step leave their
 spans in the exported trace, each inside its parent; preprocess counts
-its rows and active rows; nothing computed changes with tracing on; and
+its rows and active rows, binning its pairs (none through a kernel on
+the CPU); nothing computed changes with tracing on; and
 ``device_ops`` sums the same device time with the spans' device-side
 ranges as without them. Tiny sizes: 200 gaussians in 256 slots at 64x64,
 a 64x96 eye."""
@@ -130,10 +131,22 @@ def test_spans_nest_under_the_profiler(world, path, tmp_path):
 
 
 def test_preprocess_counts_rows_and_active_rows(world):
+    """Preprocess counts its rows and active rows, binning its enumerated
+    pairs; on the CPU nothing is counted as going through a kernel (no
+    ``gs.preprocess.kernel``, no ``gs.binning.kernel``)."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning
+
+    before = binning.BINNING_SORT.launches, binning.BINNING_LAYOUT.launches
     profiled(lambda: run_path(world, "serve"))
     counts = {c.name: c.value for c in tracing.counters()}
+    pairs = counts.pop("gs.binning.pairs")
     assert counts == {"gs.preprocess.rows": SLOTS, "gs.preprocess.active": N}
-    assert [c.value for c in tracing.counters()] == [SLOTS, N]
+    assert [c.name for c in tracing.counters()] == [
+        "gs.preprocess.rows", "gs.preprocess.active", "gs.binning.pairs"]
+    with torch.no_grad():
+        out = renderer.render(world["cam"], world["state"], world["bg"], max_instances=CAPACITY)
+    assert pairs == int(out.num_enumerated) > int(out.num_instances) > 0
+    assert (binning.BINNING_SORT.launches, binning.BINNING_LAYOUT.launches) == before
 
 
 @pytest.mark.parametrize("path", list(NESTING))
