@@ -251,6 +251,7 @@ import torch
 
 from gaussian_splatting_with_eye_tracking_tpu_torch.bench_scene import (
     H, MAX_INSTANCES, MAX_LIVE, N, REPS, W, make_scene, raw_params, view_request)
+from gsbench.eyes import GRAY, eye_label  # the synthetic eye's one definition
 
 VIEWS = [(0.0, 0.0), (6.0, 0.0), (-5.0, 3.0), (3.0, -4.0)]  # (yaw, pitch) degrees
 EXTENT = 5.0  # scene extent (the cameras' distance): xyz lr scale and densify sizes
@@ -290,25 +291,13 @@ def log(*args):
     print(*args, flush=True)
 
 
-def eye_label(height=EYE_H, width=EYE_W, gaze_uv=EYE_GAZE_UV):
-    """The synthetic eye's class map (int32, RITnet's classes): 0 skin, 1 a
-    sclera ellipse, 2 an iris and 3 a pupil centred at gaze_uv * (width,
-    height), each drawn over the one before."""
-    yy, xx = np.mgrid[0:height, 0:width].astype(np.float64)
-    label = np.zeros((height, width), np.int32)
-    sclera = ((xx - width / 2) / (0.42 * width)) ** 2 + ((yy - height / 2) / (0.3 * height)) ** 2
-    label[sclera <= 1.0] = 1
-    r = np.hypot(xx - gaze_uv[0] * width, yy - gaze_uv[1] * height)
-    label[r <= 0.19 * height] = 2
-    label[r <= 0.08 * height] = 3
-    return label
-
-
 def make_eye(seed=0, height=EYE_H, width=EYE_W, gaze_uv=EYE_GAZE_UV):
-    """A synthetic grayscale eye (uint8): ``eye_label``'s classes as gray
-    levels (skin 150, sclera 215, iris 95, pupil 25), with noise."""
+    """A synthetic grayscale eye (uint8): ``gsbench.eyes.eye_label``'s
+    classes (skin, a sclera ellipse, an iris and a pupil centred at gaze_uv
+    * (width, height)) as its gray levels (skin 150, sclera 215, iris 95,
+    pupil 25), with N(0, 6) noise from ``default_rng(seed)``."""
     rng = np.random.default_rng(seed)
-    img = np.array([150.0, 215.0, 95.0, 25.0])[eye_label(height, width, gaze_uv)]
+    img = GRAY[eye_label(height, width, gaze_uv)]
     img += rng.normal(0.0, 6.0, img.shape)
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
@@ -910,24 +899,34 @@ def backward_checks(state, cam, target, bg, step):
 
 
 def eye_phase():
-    """Phase 7: RITnet on the synthetic eye, card against CPU (logits
-    within 1e-3 of their largest magnitude, class maps differing on at most
-    0.1 % of pixels, gaze within 1 px); returns the card's model, the eye,
-    its gaze and the numbers."""
+    """Phase 7: RITnet on the synthetic eye. Its preprocessing on the card
+    and on the CPU equals the host NumPy reference bit for bit, and the
+    card's class map and gaze equal those of the reference's input uploaded
+    to the card; card against CPU, logits within 1e-3 of their largest
+    magnitude, class maps differing on at most 0.1 % of pixels, gaze within
+    1 px. Returns the card's model, the eye, its gaze and the numbers."""
     from gaussian_splatting_with_eye_tracking_tpu_torch import track_render
     from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet
 
     eye = make_eye()
     models = {d: ritnet.load_pretrained(device=d) for d in ("cuda", "cpu")}
-    x = ritnet.preprocess_eye_image(eye, device="cpu")
+    host = torch.from_numpy(ritnet.normalise_eye_image(eye))[None, None]
+    x = {d: ritnet.preprocess_eye_image(eye, device=d) for d in models}
+    for d, xd in x.items():
+        if xd.device.type != d or not torch.equal(xd.cpu(), host):
+            raise AssertionError(f"the eye's preprocessing on {d} is not the host reference's")
     with torch.no_grad():
-        logits = {d: m(x.to(d)).cpu() for d, m in models.items()}
+        logits = {d: m(x[d]).cpu() for d, m in models.items()}
+        host_pred = ritnet.get_predictions(models["cuda"](host.cuda()))[0]
     scale = float(logits["cpu"].abs().max())
     err = float((logits["cuda"] - logits["cpu"]).abs().max())
     if not err <= 1e-3 * scale:
         raise AssertionError(f"RITnet logits differ between card and CPU by {err} (max {scale})")
     gaze = {d: track_render.estimate_gaze(eye, m, device=d) for d, m in models.items()}
     (uv, pred), (uv_cpu, pred_cpu) = gaze["cuda"], gaze["cpu"]
+    host_uv = ritnet.pupil_centroid(host_pred) / np.array([EYE_W, EYE_H])
+    if not (torch.equal(pred, host_pred) and np.array_equal(uv, host_uv)):
+        raise AssertionError("the card's class map or gaze differs from the host input's")
     differ = float((pred.cpu() != pred_cpu).float().mean())
     gaze_err = float(np.abs((uv - uv_cpu) * np.array([EYE_W, EYE_H])).max())
     if differ > 1e-3 or gaze_err > 1.0:
@@ -1777,19 +1776,22 @@ def ritnet_timings(run):
     root, split = run["root"], "train"
     names = ritnet_data.list_split(root, split)[:8]
     rng = np.random.default_rng(3)
-    parts = {"load_augment": 0.0, "preprocess": 0.0, "weight_map": 0.0, "distance_maps": 0.0}
+    parts = {"load_augment": 0.0, "weight_map": 0.0, "distance_maps": 0.0}
+    eyes = []
     for name in names:
         t0 = time.perf_counter()
         img, label = ritnet_data.augment(*ritnet_data.load_example(root, split, name), rng)
         t1 = time.perf_counter()
-        ritnet.normalise_eye_image(img)
-        t2 = time.perf_counter()
         ritnet_train.boundary_weight_map(label)
-        t3 = time.perf_counter()
+        t2 = time.perf_counter()
         ritnet_train.distance_maps(label)
-        t4 = time.perf_counter()
-        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+        t3 = time.perf_counter()
+        for key, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
             parts[key] += dt * 1e3
+        eyes.append(img)
+    t0 = time.perf_counter()
+    ritnet.normalise_eye_images(torch.from_numpy(np.stack(eyes)))  # the batch's one call
+    parts["preprocess"] = (time.perf_counter() - t0) * 1e3
     t0 = time.perf_counter()
     next(ritnet_data.batches(root, split, 8, np.random.default_rng(3)))
     batch_ms = (time.perf_counter() - t0) * 1e3

@@ -251,7 +251,8 @@ def load_pretrained(path=None, device=None) -> DenseNet2D:
 
 
 # ---------------------------------------------------------------------------
-# Preprocessing (numpy, as the JAX package's): gamma table, CLAHE, normalise
+# Preprocessing's host NumPy reference, in the JAX package's arithmetic: no
+# program path calls it; the tests hold the tensor route below to it
 # ---------------------------------------------------------------------------
 
 
@@ -301,19 +302,12 @@ def clahe(img_u8: np.ndarray, clip_limit: float = 1.5, grid=(8, 8)) -> np.ndarra
 
 def normalise_eye_image(img_u8_gray: np.ndarray) -> np.ndarray:
     """uint8 grayscale (H, W) -> the float32 (H, W) model input in [-1, 1],
-    on the host: gamma 0.8 table, CLAHE, normalisation."""
+    on the host: gamma 0.8 table, CLAHE, normalisation. The reference that
+    the tensor route is held to; no program path calls it."""
     x = gamma_lut(img_u8_gray, 0.8)
     x = clahe(x, 1.5, (8, 8))
     x = x.astype(np.float32) / 255.0
     return (x - 0.5) / 0.5
-
-
-@tracing.spanned("gs.gaze.prep")
-def preprocess_eye_image(img_u8_gray: np.ndarray, device=None) -> torch.Tensor:
-    """uint8 grayscale (H, W) -> the normalised (1, 1, H, W) float32 model
-    input on ``device``: CUDA unless the caller asks for another."""
-    dev = backend.resolve_device(device)
-    return torch.from_numpy(normalise_eye_image(img_u8_gray))[None, None].to(dev)
 
 
 _CLAHE_PLANS: dict = {}
@@ -385,23 +379,25 @@ def preprocess_eye_images(imgs_u8_gray, device=None) -> torch.Tensor:
     """A list or (B, H, W) stack of uint8 grayscale eyes -> the normalised
     (B, 1, H, W) float32 model input on ``device`` (CUDA unless the caller
     asks for another): one upload of the uint8 stack, then
-    ``normalise_eye_images`` there, equal to ``preprocess_eye_image`` on
-    each eye."""
+    ``normalise_eye_images`` there. The one route from eye images to the
+    model's input, for one eye or several."""
     dev = backend.resolve_device(device)
     eyes = torch.from_numpy(np.ascontiguousarray(np.stack(list(imgs_u8_gray)))).to(dev)
     return normalise_eye_images(eyes)[:, None]
 
 
-@tracing.spanned("gs.gaze.centroid")
+def preprocess_eye_image(img_u8_gray: np.ndarray, device=None) -> torch.Tensor:
+    """uint8 grayscale (H, W) -> the normalised (1, 1, H, W) float32 model
+    input on ``device`` (CUDA unless the caller asks for another): a batch
+    of one through ``preprocess_eye_images``."""
+    return preprocess_eye_images(np.asarray(img_u8_gray)[None], device=device)
+
+
 def pupil_centroid(pred) -> np.ndarray:
     """Gaze estimate: the pupil class's centroid (x, y) in image
     coordinates of an (H, W) class map (tensor or array), or the image
     centre where no pixel is pupil."""
     pred = pred.cpu().numpy() if isinstance(pred, torch.Tensor) else np.asarray(pred)
-    return _centroid(pred)
-
-
-def _centroid(pred: np.ndarray) -> np.ndarray:
     ys, xs = np.nonzero(pred == PUPIL)
     if len(xs) == 0:
         h, w = pred.shape
@@ -412,7 +408,7 @@ def _centroid(pred: np.ndarray) -> np.ndarray:
 @tracing.spanned("gs.gaze.centroid")
 def pupil_centroids(pred) -> np.ndarray:
     """(B, 2) pupil centroids (x, y) of a (B, H, W) class map (tensor or
-    array), each as ``pupil_centroid`` reads its map, after one copy of
-    the whole map to the host."""
+    array): one copy of the whole map to the host (where the host waits
+    for the device), then ``pupil_centroid`` on each map."""
     pred = pred.cpu().numpy() if isinstance(pred, torch.Tensor) else np.asarray(pred)
-    return np.stack([_centroid(p) for p in pred])
+    return np.stack([pupil_centroid(p) for p in pred])

@@ -1,4 +1,4 @@
-"""RITnet dataset pipeline, on the host in numpy and scipy.
+"""RITnet dataset pipeline, on the host in numpy, scipy and CPU tensors.
 
 Port of ``gaussian_splatting_with_eye_tracking_tpu/models/ritnet_data.py``
 (the reference's RITnet/dataset.py:35-212, IrisDataset). OpenEDS-style
@@ -8,7 +8,7 @@ folders:
     <root>/<split>/labels/*.npy   (H, W) int class maps (0..3)
 
 Preprocessing: gamma-0.8 table, CLAHE(1.5, 8x8), [-1, 1] normalisation
-(``ritnet.normalise_eye_image``, shared with inference). Training
+(``ritnet.normalise_eye_images`` on each batch, as inference). Training
 augmentations: horizontal flip, gaussian blur, bright lines, a bright
 blob, a small translation. Every random draw comes from one
 ``np.random.Generator`` in JAX's order (the permutation, then per image the
@@ -24,6 +24,7 @@ import os
 from typing import Iterator, List, Tuple
 
 import numpy as np
+import torch
 
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet_train
@@ -106,11 +107,12 @@ def batches(
                 hh = img.shape[0] - img.shape[0] % 16
                 ww = img.shape[1] - img.shape[1] % 16
                 img, label = img[:hh, :ww], label[:hh, :ww]
-            imgs.append(ritnet.normalise_eye_image(img)[None])
+            imgs.append(img)
             labels.append(label)
             wmaps.append(ritnet_train.boundary_weight_map(label))
             dmaps.append(ritnet_train.distance_maps(label))
         yield (
-            np.stack(imgs), np.stack(labels).astype(np.int32),
+            ritnet.normalise_eye_images(torch.from_numpy(np.stack(imgs)))[:, None].numpy(),
+            np.stack(labels).astype(np.int32),
             np.stack(wmaps), np.stack(dmaps),
         )

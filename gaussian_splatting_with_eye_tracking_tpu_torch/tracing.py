@@ -31,10 +31,10 @@ The spans, each inside its parent:
   ``blend.Splat.forward``), ``gs.composite`` (``blend.blend_fwd``),
   ``gs.assemble`` (``blend.assemble_tiles``);
 - ``gs.gaze`` (``track_render.estimate_gaze``): ``gs.gaze.prep``
-  (``ritnet.preprocess_eye_image``: gamma, CLAHE, normalisation, the
-  upload), ``gs.gaze.net`` (``DenseNet2D`` and the argmax),
-  ``gs.gaze.centroid`` (``ritnet.pupil_centroid``: the class map's copy
-  to the host, where the host waits for RITnet, and the centroid);
+  (``ritnet.preprocess_eye_images``: the upload, then gamma, CLAHE and
+  normalisation on the device), ``gs.gaze.net`` (``DenseNet2D``, argmax),
+  ``gs.gaze.centroid`` (``ritnet.pupil_centroids``: the class maps' copy
+  to the host, where the host waits for RITnet, and the centroids);
 - ``gs.fovea`` (``track_render.foveated_view``): ``gs.activate``,
   ``gs.preprocess`` and ``gs.binning`` (``amr.fovea_step0``),
   ``gs.levels`` (``assign_levels`` / ``gaze_levels``), ``gs.composite``

@@ -81,19 +81,14 @@ def estimate_gaze(eye_u8, weights=None, device=None):
                          f"{eye.shape}")
     h = eye.shape[-2] - eye.shape[-2] % 16
     w = eye.shape[-1] - eye.shape[-1] % 16
-    eye = eye[..., :h, :w]
     model = weights if isinstance(weights, ritnet.DenseNet2D) else ritnet.load_pretrained(
         weights, device=dev)
-    one = eye.ndim == 2
-    x = ritnet.preprocess_eye_image(eye, device=dev) if one else \
-        ritnet.preprocess_eye_images(eye, device=dev)
+    x = ritnet.preprocess_eye_images(eye.reshape(-1, *eye.shape[-2:])[:, :h, :w], device=dev)
     tracing.count("gs.gaze.eyes", x.shape[0])
     with tracing.span("gs.gaze.net"), torch.no_grad():
         pred = ritnet.get_predictions(model(x))
-    if one:
-        pred = pred[0]
-        return ritnet.pupil_centroid(pred) / np.array([w, h]), pred
-    return ritnet.pupil_centroids(pred) / np.array([w, h]), pred
+    uv = ritnet.pupil_centroids(pred) / np.array([w, h])
+    return (uv[0], pred[0]) if eye.ndim == 2 else (uv, pred)
 
 
 @tracing.spanned("gs.fovea")

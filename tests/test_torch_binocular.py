@@ -13,15 +13,17 @@ slots, per-eye 112x96 views, so the last tile column and row are cropped,
   (``gsbench/tests/test_gsbench_reference.py``);
 - the batch-2 forward equals two batch-1 forwards (class maps equal,
   logits within 1e-5 of the largest), the pair's preprocessing (gamma,
-  CLAHE and normalisation in tensor operations) two single ones (NumPy
-  on the host) exactly, at the eye cameras' 400x640, at 64x96 and at a
-  shape the CLAHE grid pads;
+  CLAHE and normalisation in tensor operations, the one route) the host
+  NumPy reference's of each eye exactly, at the eye cameras' 400x640, at
+  64x96 and at a shape the CLAHE grid pads;
 - each eye's frame equals a single-eye ``foveated_view`` bit for bit;
 - under ``torch.profiler``: one ``gs.gaze`` and one ``gs.activate``
   (outside every ``gs.fovea``) and two ``gs.fovea`` per ``gs.binocular``,
   ``gs.gaze.eyes`` 2, ``gs.fovea.instances`` each eye's
   ``num_instances``;
-- the single-image ``estimate_gaze`` returns what its steps give;
+- the single-image ``estimate_gaze`` returns what the host reference's
+  input gives through RITnet, and a centroid patched at
+  ``ritnet.pupil_centroid`` moves one eye's gaze and a pair's;
 - ``eye_camera`` puts an eye where the benchmark's head-path cameras put
   it.
 
@@ -117,10 +119,15 @@ def test_binocular_frame_matches_the_reference(world, pose, decimation):
     assert not torch.equal(colors[0], colors[1])
 
 
+def host_input(eye):
+    """The host NumPy reference's (1, 1, H, W) model input of one eye."""
+    return torch.from_numpy(ritnet.normalise_eye_image(eye))[None, None]
+
+
 def test_pair_forward_equals_two_single_forwards(world):
     pair, model = world["pair"], world["model"]
     x = ritnet.preprocess_eye_images(pair, device="cpu")
-    singles = [ritnet.preprocess_eye_image(eye, device="cpu") for eye in pair]
+    singles = [host_input(eye) for eye in pair]
     assert x.shape == (2, 1, EYE_H, EYE_W) and torch.equal(x, torch.cat(singles))
     with torch.no_grad():
         both = model(x)
@@ -150,7 +157,7 @@ PREP_SHAPES = [(400, 640), (64, 96), (37, 53)]
 def test_pair_preprocessing_is_each_eyes_bit_for_bit(shape):
     pair = eye_pair(shape)
     x = ritnet.preprocess_eye_images(np.stack(pair), device="cpu")
-    want = torch.cat([ritnet.preprocess_eye_image(eye, device="cpu") for eye in pair])
+    want = torch.cat([host_input(eye) for eye in pair])
     assert x.dtype == torch.float32 and torch.equal(x, want)
 
 
@@ -194,9 +201,8 @@ def test_spans_and_counters_of_a_headset_frame(world, tmp_path):
 def test_single_image_estimate_gaze_is_unchanged(world):
     eye = np.pad(world["pair"][0], ((0, 5), (0, 9)))  # cropped back to 64x96
     uv, cls = track_render.estimate_gaze(eye, world["model"], device="cpu")
-    x = ritnet.preprocess_eye_image(eye[:EYE_H, :EYE_W], device="cpu")
     with torch.no_grad():
-        want = ritnet.get_predictions(world["model"](x))[0]
+        want = ritnet.get_predictions(world["model"](host_input(eye[:EYE_H, :EYE_W])))[0]
     assert cls.shape == (EYE_H, EYE_W) and torch.equal(cls, want)
     np.testing.assert_array_equal(uv, ritnet.pupil_centroid(want) / np.array([EYE_W, EYE_H]))
     # the first eye of a pair is the same eye
@@ -206,6 +212,19 @@ def test_single_image_estimate_gaze_is_unchanged(world):
     assert torch.equal(pair_cls[0], cls)
     with pytest.raises(ValueError):
         track_render.estimate_gaze(eye.astype(np.float32), world["model"], device="cpu")
+
+
+def test_a_patched_centroid_moves_one_eye_and_a_pair(world, monkeypatch):
+    eye, pair = world["pair"][0], list(world["pair"])
+    uv, _ = track_render.estimate_gaze(eye, world["model"], device="cpu")
+    uvs, _ = track_render.estimate_gaze(pair, world["model"], device="cpu")
+    centroid = ritnet.pupil_centroid
+    monkeypatch.setattr(ritnet, "pupil_centroid", lambda pred: centroid(pred) + [8.0, 0.0])
+    moved, _ = track_render.estimate_gaze(eye, world["model"], device="cpu")
+    moved_pair, _ = track_render.estimate_gaze(pair, world["model"], device="cpu")
+    shift = np.array([8.0 / EYE_W, 0.0])
+    np.testing.assert_allclose(moved - uv, shift, atol=1e-12)
+    np.testing.assert_allclose(moved_pair - uvs, [shift, shift], atol=1e-12)
 
 
 def test_eye_camera_is_the_head_camera_moved_along_its_x_axis(world):
@@ -268,8 +287,30 @@ def test_card_eyes_equal_single_views_and_count(world, dev):
 @pytest.mark.parametrize("shape", PREP_SHAPES)
 def test_card_pair_preprocessing_is_the_hosts(dev, shape):
     """The pair's gamma, CLAHE and normalisation on the card equal the
-    host's NumPy version of each eye bit for bit."""
+    host NumPy reference's of each eye bit for bit."""
     pair = eye_pair(shape)
     x = ritnet.preprocess_eye_images(pair, device=dev)
-    want = torch.cat([ritnet.preprocess_eye_image(eye, device="cpu") for eye in pair])
+    want = torch.cat([host_input(eye) for eye in pair])
     assert x.device.type == "cuda" and torch.equal(x.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_card_gaze_equals_the_host_inputs(dev):
+    """One 400x640 eye and a pair through ``estimate_gaze`` on the card,
+    with the vendored weights: the class maps and gazes equal bit for bit
+    those of the host reference's inputs uploaded and run through the same
+    model at the same batch (what the host route gave)."""
+    model = ritnet.load_pretrained(device=dev)
+    pair = eyes.eye_images(np.random.default_rng(5), GAZES, 400, 640, 2)
+    size = np.array([640, 400])
+    for batch in ([pair[0]], pair):
+        with torch.no_grad():
+            want = ritnet.get_predictions(model(torch.cat([host_input(e) for e in batch]).to(dev)))
+        want_uv = np.stack([ritnet.pupil_centroid(p) for p in want]) / size
+        uv, cls = track_render.estimate_gaze(batch[0] if len(batch) == 1 else batch, model,
+                                             device=dev)
+        if len(batch) == 1:
+            uv, cls = uv[None], cls[None]
+        assert (want == ritnet.PUPIL).any()
+        assert torch.equal(cls, want) and np.array_equal(uv, want_uv)
+

@@ -1,9 +1,10 @@
 """PyTorch port vs JAX package: RITnet inference and the gaze estimate.
 DenseNet2D with the vendored weights against ``densenet2d_apply`` to atol
 1e-4 / rtol 1e-4 (fp32 convolutions summed in another order), class maps
-equal wherever the top two logits are more than 1e-4 apart; the numpy
-preprocessing bit-equal; the pupil centroid exact; the gaze of a synthetic
-eye within 0.5 px."""
+equal wherever the top two logits are more than 1e-4 apart; the
+preprocessing bit-equal (the host NumPy reference and the tensor route
+that every program path takes, which needs no host reference); the pupil
+centroid exact; the gaze of a synthetic eye within 0.5 px."""
 
 import filecmp
 
@@ -15,8 +16,10 @@ import torch
 
 import chip_smoke as cs
 from gaussian_splatting_with_eye_tracking_tpu.models import ritnet as jrit
+from gaussian_splatting_with_eye_tracking_tpu.models import ritnet_data as jdata
 from gaussian_splatting_with_eye_tracking_tpu_torch import track_render
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet as trit
+from gaussian_splatting_with_eye_tracking_tpu_torch.models import ritnet_data as tdata
 from tests.torch_helpers import assert_close, assert_equal
 
 
@@ -76,9 +79,38 @@ def test_preprocessing_bit_equal():
     img = np.random.default_rng(1).integers(0, 256, (60, 84), dtype=np.uint8)
     assert_equal(torch.from_numpy(trit.gamma_lut(img)), jrit.gamma_lut(img))
     assert_equal(torch.from_numpy(trit.clahe(img)), jrit.clahe(img))
-    got = trit.preprocess_eye_image(img, device="cpu")
+    want = jrit.preprocess_eye_image(img)
+    assert_equal(torch.from_numpy(trit.normalise_eye_image(img))[None, None], want)
+    got = trit.preprocess_eye_image(img, device="cpu")  # the tensor route
     assert got.shape == (1, 1, 60, 84) and got.dtype == torch.float32
-    assert_equal(got, jrit.preprocess_eye_image(img))
+    assert_equal(got, want)
+
+
+def test_no_program_path_takes_the_host_reference(model, tmp_path, monkeypatch):
+    """With the port's host reference (``clahe``, ``normalise_eye_image``)
+    made to raise, ``preprocess_eye_image``, one eye's ``estimate_gaze``
+    and ``ritnet_data.batches`` still run on the CPU and equal JAX's."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a program path took the host reference")
+
+    monkeypatch.setattr(trit, "clahe", refuse)
+    monkeypatch.setattr(trit, "normalise_eye_image", refuse)
+    eye = cs.make_eye(seed=3, height=96, width=128)
+    want_x = np.array(jrit.preprocess_eye_image(eye))
+    assert_equal(trit.preprocess_eye_image(eye, device="cpu"), want_x)
+    with torch.no_grad():
+        want = trit.get_predictions(model(torch.from_numpy(want_x)))[0]
+    uv, pred = track_render.estimate_gaze(eye, model, device="cpu")
+    assert torch.equal(pred, want)
+    np.testing.assert_array_equal(uv, jrit.pupil_centroid(want.numpy()) / np.array([128, 96]))
+    cs.write_eye_dataset(str(tmp_path), 4, 0, height=40, width=56, seed=2)
+    got = list(tdata.batches(str(tmp_path), "train", 2, np.random.default_rng(4)))
+    ref = list(jdata.batches(str(tmp_path), "train", 2, np.random.default_rng(4)))
+    assert len(got) == len(ref) == 2
+    for gb, rb in zip(got, ref):
+        for a, b in zip(gb, rb):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
 
 
 def test_pupil_centroid_exact():
