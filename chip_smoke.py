@@ -347,11 +347,10 @@ PREP_TOL = 1e-6  # K7 against preprocess_plain: each float's gap over max(1, |pl
 PREP_SHAPES = {"300k": (N, N, 0), "4M_1M": (1_000_000, 1 << 22, 2)}
 
 
-def preprocess_inputs(n, slots, seed, dev):
+def preprocess_params(n, slots, seed, dev):
     """bench.py's scene of ``n`` gaussians (from ``seed``) in ``slots``
-    slots, the rest ``_pad_params``' inert fills and inactive, activated as
-    the renderer activates them: ((means, scales, quats, opacities, sh),
-    the active mask or None)."""
+    slots, the rest ``_pad_params``' inert fills and inactive: (the raw
+    ``GaussianParams``, the active mask or None)."""
     from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
 
     raw = raw_params(*make_scene(n, seed=seed))
@@ -361,7 +360,48 @@ def preprocess_inputs(n, slots, seed, dev):
     if slots > n:
         p = gm._pad_params(p, slots)
         active = torch.arange(slots, device=p.xyz.device) < n
-    return (p.xyz, gm.get_scaling(p), p.rotation, gm.get_opacity(p), gm.get_sh(p)), active
+    return p, active
+
+
+def preprocess_inputs(n, slots, seed, dev):
+    """``preprocess_params``' scene activated as the renderer activates it
+    at SH degree 3: ((means, scales, quats, opacities, sh), the active mask
+    or None)."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
+
+    p, active = preprocess_params(n, slots, seed, dev)
+    return gm.activate(p, 3, 3), active
+
+
+def bits_equal(a, b) -> bool:
+    """Two records' field equal bit for bit (a NaN on both sides counts as
+    equal, whatever its payload)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    same = a.view(torch.int32) == b.view(torch.int32)
+    return bool((same | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def raw_mismatch(raw, act, plain) -> list:
+    """The fields where K7's record from the raw form (``raw``) differs
+    from its record from the activated form (``act``) or from
+    ``preprocess_plain``'s (``plain``), bit for bit: every field against
+    K7's, every field but a culled slot's rgb (0 in K7's) against the
+    plain version's."""
+    bad = [f"{name} (activated form)" for name in act._fields
+           if not bits_equal(getattr(raw, name), getattr(act, name))]
+    drawn = plain.radii > 0
+    for name in plain._fields:
+        a, b = getattr(raw, name), getattr(plain, name)
+        if name == "rgb":
+            ok = bits_equal(a[drawn], b[drawn]) and not a[~drawn].any()
+        else:
+            ok = bits_equal(a, b)
+        if not ok:
+            bad.append(f"{name} (plain)")
+    return bad
 
 
 def preprocess_mismatch(got, want) -> dict:
@@ -433,20 +473,30 @@ def preprocess_phase(dev):
     drawn slots, the wrapper's ms, the kernel alone (20 launches back to
     back into the outputs of the first), the plain version's ms and the
     byte bound: every slot's mean, scales, quaternion, opacity (and mask)
-    read and its 68-byte record written, the drawn slots' SH rows read."""
+    read and its 68-byte record written, the drawn slots' SH rows read.
+    The raw form too (``gm.RawGaussians``, the served view's route): its
+    record bit for bit the activated form's and the plain version's
+    (``raw_mismatch``), its wrapper and kernel alone timed beside the
+    activation plus the activated form's wrapper (the route it replaces);
+    its bytes are the activated form's."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
     from gaussian_splatting_with_eye_tracking_tpu_torch.ops import projection
 
     cam = view_request(6.0, -4.0).params(device=dev)
     out = {}
     for tag, (n, slots, seed) in PREP_SHAPES.items():
-        g, active = preprocess_inputs(n, slots, seed, dev)
+        params, active = preprocess_params(n, slots, seed, dev)
+        g = gm.activate(params, 3, 3)
+        raw = gm.RawGaussians(*params, 3)
         args, kw = (*g, 3, cam), dict(tile=32, active_mask=active)
+        raw_args = (raw, None, None, None, None, 3, cam)
         launched = []
         kernel = projection.PREPROCESS
         projection.PREPROCESS = lambda *a: (launched.append(a), kernel(*a))
         try:
             with torch.no_grad():
                 got = projection.preprocess_kernel(*args, **kw)
+                got_raw = projection.preprocess_kernel(*raw_args, **kw)
         finally:
             projection.PREPROCESS = kernel
         with torch.no_grad():
@@ -455,22 +505,36 @@ def preprocess_phase(dev):
             mismatch = preprocess_mismatch(got, want)
             if preprocess_failures(mismatch):
                 raise AssertionError(f"preprocess {tag}: K7 vs plain {mismatch}")
+            bad = raw_mismatch(got_raw, got, want)
+            if bad:
+                raise AssertionError(f"preprocess {tag}: K7's raw form differs in {bad}")
             ms = cuda_ms(lambda: projection.preprocess_kernel(*args, **kw))
             plain_ms = cuda_ms(lambda: projection.preprocess_plain(*args, **kw))
             kernel_ms = cuda_ms(lambda: kernel(*launched[0]), batch=20)
+            raw_ms = cuda_ms(lambda: projection.preprocess_kernel(*raw_args, **kw))
+            raw_kernel_ms = cuda_ms(lambda: kernel(*launched[1]), batch=20)
+            activated_ms = cuda_ms(lambda: projection.preprocess_kernel(
+                *gm.activate(params, 3, 3), 3, cam, **kw))
             if preprocess_failures(preprocess_mismatch(got, want)):
                 raise AssertionError(f"preprocess {tag}: K7 launched alone differs")
+            if raw_mismatch(got_raw, got, want):
+                raise AssertionError(f"preprocess {tag}: K7's raw form launched alone differs")
         drawn = int((want.radii > 0).sum())
         k = g[4].shape[-1]
         nbytes = slots * (44 + (active is not None) + 68) + drawn * 4 * 3 * k
         bound = nbytes / HBM_BYTES_PER_S * 1e3
         out[tag] = {"slots": slots, "active": n, "drawn": drawn, "mismatch": mismatch,
                     "ms": ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                    "raw_ms": raw_ms, "raw_kernel_ms": raw_kernel_ms,
+                    "activation_and_kernel_ms": activated_ms,
                     "bound_ms": bound, "mbytes": nbytes / 1e6}
         log(f"preprocess {tag}: {slots} slots, {n} active, {drawn} drawn; K7 vs plain "
             f"{json.dumps(mismatch)}; {ms:.4f} ms, the kernel alone {kernel_ms:.4f} ms "
             f"({100 * bound / kernel_ms:.1f} % of the bound {bound:.4f} ms, "
-            f"{nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms")
+            f"{nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms; raw form bit for bit, "
+            f"{raw_ms:.4f} ms, the kernel alone {raw_kernel_ms:.4f} ms "
+            f"({100 * bound / raw_kernel_ms:.1f} % of the bound), against the activation "
+            f"and K7 {activated_ms:.4f} ms")
     return out
 
 

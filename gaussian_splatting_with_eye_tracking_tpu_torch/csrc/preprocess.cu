@@ -7,6 +7,19 @@
 // tiles_touched and radii; the SH colour (+0.5, clamped at 0); the zeroed
 // opacity of culled slots.
 //
+// Two forms of input, one thread map; only the loads differ (the RAW
+// template flag). The activated form takes renderer.activated's tensors:
+// exp'd scales, sigmoid'd opacities and the (N, 3, K) SH with the bands
+// above the state's degree zeroed. The raw form takes the model's own
+// parameters (models/gaussian_model.RawGaussians): log-scales, opacity
+// logits, and the SH as f_dc (N, 3, 1) and f_rest (N, 3, K-1). It applies
+// the activation to each row as it loads it, rounded as torch.exp and
+// torch.sigmoid round it on the card, and shades only the bands up to the
+// state's degree, reading only their coefficients. So a no-grad view
+// writes no activated copy of the model: over 4M slots the activation's
+// concatenation and band mask moved ~3.2 GB a view to feed this kernel's
+// ~0.64 GB. Both forms give the same record.
+//
 // Replaces no TPU kernel: the JAX package's preprocess (gaussian_splatting_
 // with_eye_tracking_tpu/ops/projection.py) is column math that XLA fuses
 // into a few loops. Run op by op in PyTorch it is ~420 elementwise
@@ -20,11 +33,14 @@
 //   - one thread per slot, 128 a CTA; the camera's matrices are read from
 //     device memory (uniform loads), so no view waits on a copy to the host;
 //   - the SH rows are the bulk of the bytes. A warp's 32 rows are
-//     contiguous in the (N, 3, K) layout (6 KB at K = 16): the warp stages
-//     them into shared memory with coalesced 16-byte loads, then each lane
-//     reads its own row there (an odd row pitch, so no bank conflicts).
-//     Only a warp with a slot to shade stages, only such slots evaluate
-//     the SH, and only the bands up to sh_degree;
+//     contiguous in the (N, 3, K) layout (6 KB at K = 16), and in the raw
+//     form in each of f_dc (384 B) and f_rest (5,760 B at K = 16, 16-byte
+//     aligned): the warp stages them into shared memory with coalesced
+//     16-byte loads, then each lane reads its own row there (an odd row
+//     pitch, so no bank conflicts). Only a warp with a slot to shade
+//     stages, only such slots evaluate the SH, and only the bands up to
+//     sh_degree; below the full degree the raw form stages only those
+//     bands' coefficients, one float a lane;
 //   - a culled slot (inactive, behind the near plane, det = 0 or no tile
 //     touched) gets radii, tiles_touched and opacity 0 and rgb 0, and
 //     reads no SH. Its geometry costs 45 B, so it is computed as for any
@@ -66,10 +82,11 @@ constexpr float C3_0 = -0.5900435899266435f, C3_1 = 2.890611442640554f,
 
 struct Args {
   const float* means;   // (n, 3)
-  const float* scales;  // (n, 3) activated
+  const float* scales;  // (n, 3) activated; raw: log-scales
   const float* quats;   // (n, 4) wxyz, not normalised
-  const float* opac;    // (n,) activated
-  const float* sh;      // (n, 3, K)
+  const float* opac;    // (n,) activated; raw: logits
+  const float* sh;      // (n, 3, K); raw: f_dc (n, 3, 1)
+  const float* sh_rest;  // raw: f_rest (n, 3, K - 1), or null where K = 1
   const uint8_t* active;  // (n,) bool, or null
   const float* view;    // (4, 4) row-major, world -> view
   const float* proj;    // (4, 4) row-major, world -> clip
@@ -107,6 +124,11 @@ __device__ __forceinline__ float norm4(float a, float b, float c, float d) {
 __device__ __forceinline__ float norm3(float a, float b, float c) {
   return sqrtf((a * a + c * c) + b * b);
 }
+
+// torch.exp and torch.sigmoid of float32 on the card: ATen's CUDA kernels
+// compute std::exp(x) and 1 / (1 + std::exp(-x)), the division IEEE
+__device__ __forceinline__ float act_exp(float x) { return expf(x); }
+__device__ __forceinline__ float act_sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
 
 // PyTorch's clamp_min / minimum / clamp: a NaN operand comes out
 __device__ __forceinline__ float clamp_min(float x, float lo) {
@@ -160,7 +182,55 @@ __device__ __forceinline__ float eval_sh(int deg, const float* s, float x, float
   return clamp_min(r + 0.5f, 0.0f);
 }
 
-template <int K>
+// Copies nf contiguous floats from src (16-byte aligned) through put(f, v),
+// 16 bytes a load, the warp's lanes side by side.
+template <class Put>
+__device__ __forceinline__ void copy_coalesced(const float* src, int nf, int lane, Put put) {
+  for (int q = lane; q < nf / 4; q += 32) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(src) + q);
+    put(4 * q, v.x);
+    put(4 * q + 1, v.y);
+    put(4 * q + 2, v.z);
+    put(4 * q + 3, v.w);
+  }
+  for (int f = nf / 4 * 4 + lane; f < nf; f += 32) put(f, __ldg(src + f));
+}
+
+// Stages the warp's SH rows (``rows`` of them, from slot ``first``, a
+// multiple of 32, so each source below starts 16-byte aligned) into
+// ``dst``, a row per lane at ``PITCH`` floats, channel c's coefficient j at
+// c * K + j. The activated form copies (n, 3, K) rows whole; the raw form
+// puts f_dc at j = 0 and f_rest's coefficients 1 .. (deg + 1)^2 - 1 after it.
+template <int K, int PITCH, bool RAW>
+__device__ __forceinline__ void stage_sh(const Args& a, int64_t first, int rows, int lane,
+                                         float* dst) {
+  if constexpr (!RAW) {
+    constexpr int ROW = 3 * K;
+    copy_coalesced(a.sh + first * ROW, rows * ROW, lane,
+                   [&](int f, float v) { dst[(f / ROW) * PITCH + f % ROW] = v; });
+  } else {
+    const float* dc = a.sh + first * 3;
+    for (int f = lane; f < rows * 3; f += 32) dst[(f / 3) * PITCH + (f % 3) * K] = __ldg(dc + f);
+    if constexpr (K > 1) {
+      constexpr int REST = K - 1;
+      const int nc = (a.sh_degree + 1) * (a.sh_degree + 1) - 1;  // coefficients past the DC
+      const float* src = a.sh_rest + first * 3 * REST;
+      if (nc == REST) {  // every band: whole rows
+        copy_coalesced(src, rows * 3 * REST, lane, [&](int f, float v) {
+          const int r = f / (3 * REST), e = f % (3 * REST);
+          dst[r * PITCH + (e / REST) * K + 1 + e % REST] = v;
+        });
+      } else {  // the bands up to sh_degree alone, a float a lane
+        for (int f = lane; f < rows * 3 * nc; f += 32) {
+          const int r = f / (3 * nc), e = f % (3 * nc), c = e / nc, j = e % nc;
+          dst[r * PITCH + c * K + 1 + j] = __ldg(src + r * 3 * REST + c * REST + j);
+        }
+      }
+    }
+  }
+}
+
+template <int K, bool RAW>
 __global__ void __launch_bounds__(THREADS)
 preprocess_kernel(const Args a) {
   constexpr int ROW = 3 * K;                   // floats of a slot's SH row
@@ -205,6 +275,12 @@ preprocess_kernel(const Args a) {
     s1 = a.scales[3 * i + 1];
     s2 = a.scales[3 * i + 2];
     op = a.opac[i];
+    if (RAW) {
+      s0 = act_exp(s0);
+      s1 = act_exp(s1);
+      s2 = act_exp(s2);
+      op = act_sigmoid(op);
+    }
   }
   const float qn = norm4(qr, qx, qy, qz);
   qr = qr / qn;
@@ -293,18 +369,8 @@ preprocess_kernel(const Args a) {
   float r = 0.f, g = 0.f, b = 0.f;
   if (__ballot_sync(FULL, in && visible)) {
     const int64_t left = a.n - first;
-    const int nf = (int)(left < 32 ? left : 32) * ROW;
-    const float* src = a.sh + first * ROW;  // 16-byte aligned: first % 32 == 0
     float* dst = stage[warp];
-    auto put = [&](int f, float v) { dst[(f / ROW) * PITCH + f % ROW] = v; };
-    for (int q = lane; q < nf / 4; q += 32) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(src) + q);
-      put(4 * q, v.x);
-      put(4 * q + 1, v.y);
-      put(4 * q + 2, v.z);
-      put(4 * q + 3, v.w);
-    }
-    for (int f = nf / 4 * 4 + lane; f < nf; f += 32) put(f, __ldg(src + f));
+    stage_sh<K, PITCH, RAW>(a, first, (int)(left < 32 ? left : 32), lane, dst);
     __syncwarp();
     if (in && visible) {
       const float dx = x - __ldg(a.campos), dy = y - __ldg(a.campos + 1),
@@ -336,29 +402,45 @@ preprocess_kernel(const Args a) {
 }
 
 template <int K>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const int64_t blocks = (a.n + THREADS - 1) / THREADS;
-  preprocess_kernel<K><<<(unsigned)blocks, THREADS, 0, stream>>>(a);
+cudaError_t launch(const Args& a, bool raw, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)((a.n + THREADS - 1) / THREADS);
+  if (raw)
+    preprocess_kernel<K, true><<<blocks, THREADS, 0, stream>>>(a);
+  else
+    preprocess_kernel<K, false><<<blocks, THREADS, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+__global__ void activation_kernel(const float* x, float* e, float* s, int64_t n) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    e[i] = act_exp(x[i]);
+    s[i] = act_sigmoid(x[i]);
+  }
 }
 
 }  // namespace
 
 // k: SH coefficients per channel (1, 4, 9 or 16); sh_degree <= 3 with
-// (sh_degree + 1)^2 <= k; sh 16-byte aligned. Outputs as Preprocessed
-// lays them out, contiguous.
+// (sh_degree + 1)^2 <= k. raw = 0: the activated form, sh (n, 3, k)
+// 16-byte aligned, sh_rest null. raw = 1: scales and opac the raw log-scales
+// and logits, sh f_dc (n, 3, 1), sh_rest f_rest (n, 3, k - 1) 16-byte
+// aligned (null where k = 1). Outputs as Preprocessed lays them out,
+// contiguous.
 extern "C" int preprocess_launch(
     const void* means, const void* scales, const void* quats, const void* opac,
-    const void* sh, const void* active, int64_t n, int k, int sh_degree,
-    const void* view, const void* proj, const void* campos, float tan_fovx, float tan_fovy,
-    int width, int height, int tile, float scale_modifier, void* means2d, void* depths,
-    void* conics, void* rgb, void* opac_out, void* radii, void* tiles, void* rect_min,
-    void* rect_max, void* cull_thr, void* stream) {
+    const void* sh, const void* sh_rest, const void* active, int64_t n, int k, int sh_degree,
+    int raw, const void* view, const void* proj, const void* campos, float tan_fovx,
+    float tan_fovy, int width, int height, int tile, float scale_modifier, void* means2d,
+    void* depths, void* conics, void* rgb, void* opac_out, void* radii, void* tiles,
+    void* rect_min, void* rect_max, void* cull_thr, void* stream) {
   if (n <= 0 || sh_degree < 0 || sh_degree > 3 || (sh_degree + 1) * (sh_degree + 1) > k ||
-      tile < 1 || ((uintptr_t)sh & 15))
+      tile < 1 || (raw ? (k > 1 && (sh_rest == nullptr || ((uintptr_t)sh_rest & 15)))
+                       : ((uintptr_t)sh & 15)))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)means, (const float*)scales, (const float*)quats,
-               (const float*)opac, (const float*)sh, (const uint8_t*)active,
+               (const float*)opac, (const float*)sh, (const float*)sh_rest,
+               (const uint8_t*)active,
                (const float*)view, (const float*)proj, (const float*)campos,
                n, sh_degree, tan_fovx, tan_fovy, scale_modifier, width, height, tile,
                (float2*)means2d, (float*)depths, (float*)conics, (float*)rgb,
@@ -366,19 +448,30 @@ extern "C" int preprocess_launch(
                (int2*)rect_max, (float*)cull_thr};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (k) {
-    case 1: return (int)launch<1>(a, s);
-    case 4: return (int)launch<4>(a, s);
-    case 9: return (int)launch<9>(a, s);
-    case 16: return (int)launch<16>(a, s);
+    case 1: return (int)launch<1>(a, raw != 0, s);
+    case 4: return (int)launch<4>(a, raw != 0, s);
+    case 9: return (int)launch<9>(a, raw != 0, s);
+    case 16: return (int)launch<16>(a, raw != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// CTAs of the SH-3 kernel resident per SM, as the runtime computes it.
+// The raw form's activation alone, for checking against torch.exp and
+// torch.sigmoid: e = exp(x), s = sigmoid(x) over n floats.
+extern "C" int preprocess_activation_launch(const void* x, void* e, void* s, int64_t n,
+                                            void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  activation_kernel<<<(unsigned)((n + 255) / 256), 256, 0, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)e, (float*)s, n);
+  return (int)cudaGetLastError();
+}
+
+// CTAs of the SH-3 kernel's raw form (the served view's) resident per SM,
+// as the runtime computes it.
 extern "C" int preprocess_blocks_per_sm() {
   int blocks = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, preprocess_kernel<16>, THREADS, 0);
+      &blocks, preprocess_kernel<16, true>, THREADS, 0);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 

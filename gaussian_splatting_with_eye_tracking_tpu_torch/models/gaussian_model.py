@@ -93,6 +93,49 @@ def get_covariance(p: GaussianParams, scale_modifier: float = 1.0) -> torch.Tens
     return tf.build_cov3d(get_scaling(p), p.rotation, scale_modifier)
 
 
+def sh_band_mask(sh_degree: int, max_sh_degree: int, device=None) -> torch.Tensor:
+    """(K,) bool mask of the SH coefficients active at ``sh_degree``."""
+    k = (max_sh_degree + 1) ** 2
+    idx = torch.arange(k, device=device)
+    band = torch.floor(torch.sqrt(idx.to(torch.float32))).to(torch.int32)
+    return band <= sh_degree
+
+
+def activate(p: GaussianParams, sh_degree: int, max_sh_degree: int) -> tuple:
+    """(means, scales, rotations, opacities, SH with the bands above
+    ``sh_degree`` zeroed): the rasterizer's activated inputs."""
+    mask = sh_band_mask(sh_degree, max_sh_degree, p.xyz.device)
+    sh = get_sh(p) * mask[None, None, :]
+    return p.xyz, get_scaling(p), p.rotation, get_opacity(p), sh
+
+
+class RawGaussians(NamedTuple):
+    """A model's raw parameters (``GaussianParams``' six fields, in its
+    order) and its active SH degree: the rasterizer's input in place of
+    the five activated tensors where the preprocess kernel (K7) activates
+    each row as it loads it (``ops/projection.preprocess``)."""
+
+    xyz: torch.Tensor  # (C, 3)
+    f_dc: torch.Tensor  # (C, 3, 1)
+    f_rest: torch.Tensor  # (C, 3, K-1)
+    scaling: torch.Tensor  # (C, 3) log-scale
+    rotation: torch.Tensor  # (C, 4) unnormalized quaternion (wxyz)
+    opacity: torch.Tensor  # (C, 1) logit
+    sh_degree: int
+
+    @property
+    def device(self) -> torch.device:
+        return self.xyz.device
+
+    @property
+    def max_sh_degree(self) -> int:
+        return math.isqrt(1 + self.f_rest.shape[-1]) - 1
+
+    def activated(self) -> tuple:
+        """``activate``'s five tensors, the bands above ``sh_degree`` zeroed."""
+        return activate(GaussianParams(*self[:6]), self.sh_degree, self.max_sh_degree)
+
+
 def num_active(state: GaussianModelState) -> torch.Tensor:
     return torch.sum(state.active)
 

@@ -123,7 +123,9 @@ def fovea_step0(means3d, scales, quats, opacities, sh, sh_degree, cam: CameraPar
                 gaze_radii=None, percentiles=(0.25, 0.5, 0.9),
                 predecimate=None) -> AMRState:
     """Step 0: preprocess, bin (no ``max_live``: every kept instance is
-    listed) and assign levels; nothing is rendered.
+    listed) and assign levels; nothing is rendered. The model is the five
+    activated tensors or a ``RawGaussians`` and four None, as
+    ``projection.preprocess`` takes it.
 
     ``predecimate`` (four per-level steps; needs the gaze) drops coarse
     tiles' instances at binning time; the levels are then the pure gaze
@@ -250,9 +252,10 @@ def render_amr_fused(means3d, scales, quats, opacities, sh, sh_degree, cam: Came
     ``blend.blend_levels`` launch streams each tile's instances once for
     rounds 1..level. ``decimation[L-1]`` thins level-L tiles' streams with
     aggregate-opacity compensation; ``predecimate`` drops those instances
-    at binning time instead (the compositor then only rescales). Pass
-    ``state`` to reuse a step 0. Returns (color (3, H, W), state); the
-    subgrid images are assembled by stacking and reshaping, no scatter."""
+    at binning time instead (the compositor then only rescales). The
+    model as ``fovea_step0`` takes it. Pass ``state`` to reuse a step 0.
+    Returns (color (3, H, W), state); the subgrid images are assembled by
+    stacking and reshaping, no scatter."""
     grid_x, grid_y = _grid(cam)
     if state is None:
         state = fovea_step0(means3d, scales, quats, opacities, sh, sh_degree, cam,

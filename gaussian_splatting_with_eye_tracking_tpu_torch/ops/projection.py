@@ -18,7 +18,15 @@ its inputs show:
   never differentiated;
 - any other call launches the hand-written kernel K7
   (``csrc/preprocess.cu``, ``preprocess_kernel``) on CUDA tensors, one
-  thread per slot, and runs ``preprocess_plain`` on CPU tensors.
+  thread per slot, and runs ``preprocess_plain`` on CPU tensors
+  (``takes_kernel`` is the rule).
+
+The model comes in either of two forms: the five activated tensors
+(``renderer.activated``), or a ``gaussian_model.RawGaussians`` in the
+means' place with the other four None (``renderer.model_inputs`` hands it
+down where K7 runs). K7 activates the raw form's rows as it loads them;
+``preprocess_plain`` applies the model's activation ops to it first. Both
+forms give the same record on every route.
 
 K7 writes the plain record as the plain version computes it on the card,
 each float rounded alike (so the integer fields, radii, tiles_touched and
@@ -35,6 +43,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from gaussian_splatting_with_eye_tracking_tpu_torch import backend, tracing
+from gaussian_splatting_with_eye_tracking_tpu_torch.models.gaussian_model import RawGaussians
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import sh as sh_ops
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import transforms as tf
 
@@ -81,14 +90,28 @@ def _to_int32(x: torch.Tensor) -> torch.Tensor:
 
 PREPROCESS = backend.CudaKernel(
     "preprocess", "preprocess", "preprocess_launch",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+    [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int]
     + [ctypes.c_void_p] * 3
     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float]
     + [ctypes.c_void_p] * 11,
 )
+# the raw form's activation alone (x, exp(x), sigmoid(x), n): for checks
+ACTIVATION = backend.CudaKernel(
+    "preprocess_activation", "preprocess", "preprocess_activation_launch",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_void_p],
+)
 SH_COEFFS = (1, 4, 9, 16)  # SH coefficients per channel K7 takes
-_INPUTS = ("means3d", "scales", "quats", "opacities", "sh", "viewmatrix", "projmatrix",
-           "campos")
+_CAMERA = ("viewmatrix", "projmatrix", "campos")
+_INPUTS = ("means3d", "scales", "quats", "opacities", "sh") + _CAMERA
+_RAW_INPUTS = RawGaussians._fields[:6] + _CAMERA
+
+
+def takes_kernel(*tensors: torch.Tensor) -> bool:
+    """Whether ``preprocess`` launches K7 on these inputs (the model's and
+    the camera's tensors): no gradient to take (grad mode off, or no input
+    that ``requires_grad``) and CUDA tensors."""
+    grads = torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+    return not grads and tensors[0].is_cuda
 
 
 @tracing.spanned("gs.preprocess")
@@ -105,26 +128,32 @@ def preprocess(
     scale_modifier: float = 1.0,
 ) -> Preprocessed:
     """means3d (N,3), scales (N,3) activated, quats (N,4), opacities (N,)
-    activated, sh (N, 3, K). ``active_mask`` (N,) bool kills padded slots.
-    The camera's tan(fov) values enter as float32 scalars, as in the JAX
+    activated, sh (N, 3, K); or ``means3d`` a ``RawGaussians`` and the
+    next four None (its bands up to its own degree are shaded, at most
+    ``sh_degree``). ``active_mask`` (N,) bool kills padded slots. The
+    camera's tan(fov) values enter as float32 scalars, as in the JAX
     package's ``preprocess``.
 
     ``preprocess_plain`` where a gradient may be taken or the tensors are
     on the CPU; otherwise K7 (``preprocess_kernel``), which raises on
-    inputs it does not take. Counts ``gs.preprocess.rows`` and
-    ``gs.preprocess.active`` while tracing is on, and
-    ``gs.preprocess.kernel`` (the rows given to K7)."""
-    n = means3d.shape[0]
+    inputs it does not take (``takes_kernel``). Counts
+    ``gs.preprocess.rows`` and ``gs.preprocess.active`` while tracing is
+    on, ``gs.preprocess.kernel`` (the rows given to K7) and
+    ``gs.preprocess.raw`` (those of them K7 activated from the raw
+    form)."""
+    raw = isinstance(means3d, RawGaussians)
+    model = means3d[:6] if raw else (means3d, scales, quats, opacities, sh)
+    n = model[0].shape[0]
     if tracing.is_on():
         tracing.count("gs.preprocess.rows", n)
         tracing.count("gs.preprocess.active", n if active_mask is None else active_mask.sum())
     args = (means3d, scales, quats, opacities, sh, sh_degree, cam, tile, active_mask,
             scale_modifier)
-    grads = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (means3d, scales, quats, opacities, sh, *cam[:3]))
-    if grads or not means3d.is_cuda:
+    if not takes_kernel(*model, *cam[:3]):
         return preprocess_plain(*args)
     tracing.count("gs.preprocess.kernel", n)
+    if raw:
+        tracing.count("gs.preprocess.raw", n)
     return preprocess_kernel(*args)
 
 
@@ -141,20 +170,38 @@ def preprocess_kernel(
     scale_modifier: float = 1.0,
 ) -> Preprocessed:
     """``preprocess_plain``'s record from one launch of K7 on CUDA float32
-    tensors, with no gradient. Takes K in ``SH_COEFFS`` and ``sh_degree``
-    <= 3 with (sh_degree + 1)^2 <= K; the camera's matrices stay on the
-    card. A culled slot (radius 0) gets ``rgb`` 0 and opacity 0; every
-    other field as the plain version computes it."""
-    n, k = means3d.shape[0], sh.shape[-1]
-    if not (0 <= sh_degree <= 3 and k in SH_COEFFS and (sh_degree + 1) ** 2 <= k):
+    tensors, with no gradient, from either form of the model (see
+    ``preprocess``; the raw form is activated row by row as K7 loads it).
+    Takes K in ``SH_COEFFS`` and ``sh_degree`` <= 3 with (sh_degree + 1)^2
+    <= K; the camera's matrices stay on the card. A culled slot (radius 0)
+    gets ``rgb`` 0 and opacity 0; every other field as the plain version
+    computes it."""
+    raw = isinstance(means3d, RawGaussians)
+    if raw:
+        n, k = means3d.xyz.shape[0], 1 + means3d.f_rest.shape[-1]
+        model = means3d[:6]
+        shapes = ((n, 3), (n, 3, 1), (n, 3, k - 1), (n, 3), (n, 4), (n, 1))
+        names, degree = _RAW_INPUTS, min(sh_degree, means3d.sh_degree)
+    else:
+        n, k = means3d.shape[0], sh.shape[-1]
+        model = (means3d, scales, quats, opacities, sh)
+        shapes = ((n, 3), (n, 3), (n, 4), (n,), (n, 3, k))
+        names, degree = _INPUTS, sh_degree
+    if not (0 <= degree <= 3 and k in SH_COEFFS and (sh_degree + 1) ** 2 <= k):
         raise ValueError(f"preprocess: sh_degree {sh_degree} with {k} SH coefficients")
-    ins = [t.contiguous() for t in (means3d, scales, quats, opacities, sh, *cam[:3])]
-    shapes = ((n, 3), (n, 3), (n, 4), (n,), (n, 3, k), (4, 4), (4, 4), (3,))
-    for name, t, shape in zip(_INPUTS, ins, shapes):
+    ins = [t.contiguous() for t in (*model, *cam[:3])]
+    for name, t, shape in zip(names, ins, shapes + ((4, 4), (4, 4), (3,))):
         if t.shape != shape or t.dtype != torch.float32 or not t.is_cuda:
             raise ValueError(f"preprocess: {name} must be a CUDA float32 tensor of shape "
                              f"{shape}, not {t.dtype} {tuple(t.shape)} on {t.device}")
-    backend.check_aligned("sh", ins[4])
+    if raw:  # xyz, log-scales, rotation, logits; f_dc, f_rest (None where K = 1)
+        geometry, sh_ins = [ins[0], ins[3], ins[4], ins[5]], [ins[1], ins[2] if k > 1 else None]
+        staged = ("f_rest", sh_ins[1])
+    else:
+        geometry, sh_ins = ins[:4], [ins[4], None]
+        staged = ("sh", ins[4])
+    if staged[1] is not None:  # K7 stages it in 16-byte loads
+        backend.check_aligned(*staged)
     if active_mask is not None:
         active_mask = active_mask.contiguous()
         if active_mask.shape != (n,) or active_mask.dtype != torch.bool or not active_mask.is_cuda:
@@ -173,11 +220,11 @@ def preprocess_kernel(
         rect_max=torch.empty((n, 2), dtype=i32, device=dev),
         cull_thr=torch.empty(n, dtype=f32, device=dev))
     if n:
-        ptr = [t.data_ptr() for t in ins]
-        PREPROCESS(*ptr[:5], None if active_mask is None else active_mask.data_ptr(),
-                   n, k, sh_degree, *ptr[5:], float(cam.tan_fovx), float(cam.tan_fovy),
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        PREPROCESS(*map(ptr, geometry + sh_ins), ptr(active_mask), n, k, degree, int(raw),
+                   *map(ptr, ins[-3:]), float(cam.tan_fovx), float(cam.tan_fovy),
                    cam.width, cam.height, tile, float(scale_modifier),
-                   *[t.data_ptr() for t in prep], backend.stream_ptr(means3d))
+                   *map(ptr, prep), backend.stream_ptr(ins[0]))
     return prep
 
 
@@ -194,7 +241,10 @@ def preprocess_plain(
     scale_modifier: float = 1.0,
 ) -> Preprocessed:
     """``preprocess``'s plain PyTorch version, on any device and
-    differentiable (see the module's docstring)."""
+    differentiable (see the module's docstring); a ``RawGaussians`` is
+    activated first by ``gaussian_model``'s ops (``RawGaussians.activated``)."""
+    if isinstance(means3d, RawGaussians):
+        means3d, scales, quats, opacities, sh = means3d.activated()
     dev = means3d.device
     grid_x = (cam.width + tile - 1) // tile
     grid_y = (cam.height + tile - 1) // tile

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from gaussian_splatting_with_eye_tracking_tpu_torch.models.gaussian_model import RawGaussians
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import binning, blend, tile_blend
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops.projection import (
     NEAR,
@@ -79,7 +80,10 @@ def rasterize(
     out.
 
     means3d (N,3); scales (N,3) post-exp; quats (N,4) unnormalized ok;
-    opacities (N,) post-sigmoid; sh (N, 3, (sh_degree+1)^2); bg (3,);
+    opacities (N,) post-sigmoid; sh (N, 3, (sh_degree+1)^2); or, in
+    place of those five, a ``RawGaussians`` as ``means3d`` and None for
+    the other four (``renderer.model_inputs``; ``projection.preprocess``
+    takes either form); bg (3,);
     ``means2d_offset`` (N, 2) is added to the screen-space centers before
     the splat. All tensors on one device, which decides where the work
     runs. Tiles are ``blend.TILE`` pixels square on every device.
@@ -91,8 +95,11 @@ def rasterize(
     ``snapshot_fw.npz``."""
     if impl not in IMPLS:
         raise ValueError(f"rasterize: impl {impl!r} is not one of {IMPLS}")
-    args = dict(means3d=means3d, scales=scales, quats=quats, opacities=opacities,
-                sh=sh, means2d_offset=means2d_offset, bg=bg, active_mask=active_mask,
+    if isinstance(means3d, RawGaussians):
+        model = dict(zip(RawGaussians._fields[:6], means3d[:6]))
+    else:
+        model = dict(means3d=means3d, scales=scales, quats=quats, opacities=opacities, sh=sh)
+    args = dict(**model, means2d_offset=means2d_offset, bg=bg, active_mask=active_mask,
                 viewmatrix=cam.viewmatrix, projmatrix=cam.projmatrix,
                 campos=cam.campos)
     devices = {t.device for t in args.values() if t is not None}
@@ -112,6 +119,8 @@ def rasterize(
         snapshot.update(tan_fovx=cam.tan_fovx, tan_fovy=cam.tan_fovy,
                         width=cam.width, height=cam.height,
                         scale_modifier=scale_modifier)
+        if isinstance(means3d, RawGaussians):
+            snapshot.update(model_sh_degree=means3d.sh_degree)
         torch.save(snapshot, "snapshot_fw.pt")
         print("\nAn error occurred in rasterization: inputs dumped to "
               "snapshot_fw.pt for forensics. Re-raising.")

@@ -5,6 +5,13 @@ Port of ``sh_band_mask`` and ``render`` from
 model activations and mask the SH bands above the state's active degree
 (``activated``), and call the rasterizer (differentiable; ``means2d_offset`` is the handle for
 the screen-space gradient) through the ``impl`` it names (``ops/rasterize.py``).
+
+``model_inputs`` picks the rasterizer's model inputs by the rule
+``ops/projection.preprocess`` routes by: where preprocess will launch the
+preprocess kernel (K7), the raw parameters as one ``gm.RawGaussians``
+(K7 activates each row it reads, so no activated copy of the model is
+written); elsewhere (a call that may need a gradient, the CPU)
+``activated``'s tensors.
 """
 
 from __future__ import annotations
@@ -15,26 +22,32 @@ import torch
 
 from gaussian_splatting_with_eye_tracking_tpu_torch import tracing
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as gm
+from gaussian_splatting_with_eye_tracking_tpu_torch.models.gaussian_model import (  # noqa: F401
+    sh_band_mask,
+)
+from gaussian_splatting_with_eye_tracking_tpu_torch.ops import projection
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import rasterize as rast
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops.projection import CameraParams
-
-
-def sh_band_mask(sh_degree: int, max_sh_degree: int, device=None) -> torch.Tensor:
-    """(K,) bool mask of the SH coefficients active at ``sh_degree``."""
-    k = (max_sh_degree + 1) ** 2
-    idx = torch.arange(k, device=device)
-    band = torch.floor(torch.sqrt(idx.to(torch.float32))).to(torch.int32)
-    return band <= sh_degree
 
 
 @tracing.spanned("gs.activate")
 def activated(state: gm.GaussianModelState, max_sh_degree: int) -> tuple:
     """(means, scales, rotations, opacities, SH with the bands above the
     state's active degree zeroed): the rasterizer's inputs."""
-    p = state.params
-    mask = sh_band_mask(state.sh_degree, max_sh_degree, p.xyz.device)
-    sh = gm.get_sh(p) * mask[None, None, :]
-    return p.xyz, gm.get_scaling(p), p.rotation, gm.get_opacity(p), sh
+    return gm.activate(state.params, state.sh_degree, max_sh_degree)
+
+
+def model_inputs(state: gm.GaussianModelState, max_sh_degree: int) -> tuple:
+    """The rasterizer's five model arguments for ``state``: where
+    ``projection.preprocess`` will launch K7 on the raw parameters
+    (``projection.takes_kernel``: no gradient to take, CUDA tensors), a
+    ``gm.RawGaussians`` in the means' place and None in the other four,
+    packed inside ``gs.activate`` and launching nothing; elsewhere
+    ``activated``'s five tensors."""
+    if projection.takes_kernel(*state.params):
+        with tracing.span("gs.activate"):
+            return gm.RawGaussians(*state.params, state.sh_degree), None, None, None, None
+    return activated(state, max_sh_degree)
 
 
 @tracing.spanned("gs.render")
@@ -53,7 +66,7 @@ def render(
     debug: bool = False,
 ) -> rast.RenderOut:
     return rast.rasterize(
-        *activated(state, max_sh_degree),
+        *model_inputs(state, max_sh_degree),
         cam,
         bg,
         sh_degree=max_sh_degree,

@@ -26,7 +26,9 @@ reads the same with the spans as without them.
 The spans, each inside its parent:
 
 - ``gs.render`` (``renderer.render``): ``gs.activate``
-  (``renderer.activated``), ``gs.preprocess`` (``ops/projection``),
+  (``renderer.model_inputs``: ``renderer.activated``, or on the preprocess
+  kernel's route the raw parameters packed, launching nothing),
+  ``gs.preprocess`` (``ops/projection``),
   ``gs.binning`` (``build_sorted_instances`` and the chunk layout, in
   ``blend.Splat.forward``), ``gs.composite`` (``blend.blend_fwd``),
   ``gs.assemble`` (``blend.assemble_tiles``);
@@ -43,7 +45,7 @@ The spans, each inside its parent:
 - ``gs.binocular`` (``track_render.headset_frame``, a head-mounted
   display's frame): ``gs.gaze`` once (both eyes through one RITnet
   forward), ``gs.activate`` once (``track_render.binocular_frame``: the
-  activations both eyes share), then ``gs.fovea`` for each eye;
+  model inputs both eyes share), then ``gs.fovea`` for each eye;
 - the train step (``train_lib.make_train_step``): ``gs.render``, then
   ``gs.loss``, ``gs.backward`` and ``gs.optimizer`` (Adam, the
   densification statistics, the step's aux).
@@ -52,6 +54,8 @@ The counters: ``gs.preprocess.rows`` (the rows ``preprocess`` was given),
 ``gs.preprocess.active`` (the active ones among them),
 ``gs.preprocess.kernel`` (the rows that went through its hand-written
 kernel, K7; none on the CPU or where a gradient may be taken),
+``gs.preprocess.raw`` (those of them that K7 activated from the model's
+raw parameters, ``gaussian_model.RawGaussians``),
 ``gs.gaze.eyes`` (the eye images of one ``estimate_gaze`` forward: 1, or
 2 for a headset's pair), ``gs.fovea.instances`` (the instances a
 foveated view binned, ``num_instances``: a device scalar),

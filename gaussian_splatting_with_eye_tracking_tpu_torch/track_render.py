@@ -26,10 +26,11 @@ from its own eye's gaze. Runs on the card unless ``--data_device cpu``.
 
 A head-mounted display's binocular frame: ``estimate_gaze`` on a pair of
 eye images runs one RITnet forward at batch 2; ``binocular_frame``
-computes the model's activations once and renders each eye's fused
-foveated view with its own camera and gaze; ``headset_frame`` is both,
-eye images in and two views out; ``eye_camera`` moves a camera along its
-own x axis to an eye's position.
+takes the model's inputs once (``renderer.model_inputs``: on the card the
+raw parameters, which each eye's preprocess kernel activates as it reads
+them) and renders each eye's fused foveated view with its own camera and
+gaze; ``headset_frame`` is both, eye images in and two views out;
+``eye_camera`` moves a camera along its own x axis to an eye's position.
 """
 
 from __future__ import annotations
@@ -95,25 +96,24 @@ def estimate_gaze(eye_u8, weights=None, device=None):
 def foveated_view(state: gm.GaussianModelState, cam: CameraParams, bg: torch.Tensor,
                   gaze_uv, max_sh_degree: int, *, radii, decimation=(1, 1, 1, 1),
                   predecimate: bool = False, fused: bool = True,
-                  max_instances: int = 1 << 20, activations=None):
-    """One foveated view of ``state`` for a gaze in [0, 1]^2: the model's
-    activations and SH band mask (as the served view applies them; pass
-    ``renderer.activated``'s tuple as ``activations`` to reuse it), the
-    gaze mapped to pixels, ``radii`` (3,) the eccentricity rings in
-    pixels. ``fused`` renders with ``amr.render_amr_fused`` (with
-    ``decimation`` / ``predecimate``), else with the 5-step
-    ``amr.render_amr``. Runs where the model lies. Returns (color (3, H,
-    W), AMR state)."""
+                  max_instances: int = 1 << 20, model_inputs=None):
+    """One foveated view of ``state`` for a gaze in [0, 1]^2: the model as
+    the served view takes it (``renderer.model_inputs``, made without
+    autograd; pass its tuple as ``model_inputs`` to reuse it), the gaze
+    mapped to pixels, ``radii`` (3,) the eccentricity rings in pixels.
+    ``fused`` renders with ``amr.render_amr_fused`` (with ``decimation`` /
+    ``predecimate``), else with the 5-step ``amr.render_amr``. Runs where
+    the model lies. Returns (color (3, H, W), AMR state)."""
     dev = state.params.xyz.device
     gaze_xy = torch.tensor([gaze_uv[0] * cam.width, gaze_uv[1] * cam.height],
                            dtype=torch.float32, device=dev)
     radii = torch.as_tensor(radii, dtype=torch.float32, device=dev)
-    if activations is None:
-        activations = renderer.activated(state, max_sh_degree)
-    args = (*activations, max_sh_degree, cam, bg)
     kw = dict(max_instances=max_instances, active_mask=state.active, gaze_xy=gaze_xy,
               gaze_radii=radii)
     with torch.no_grad():
+        if model_inputs is None:
+            model_inputs = renderer.model_inputs(state, max_sh_degree)
+        args = (*model_inputs, max_sh_degree, cam, bg)
         if fused:
             color, st = amr.render_amr_fused(*args, decimation=decimation,
                                              predecimate=predecimate, **kw)
@@ -128,14 +128,17 @@ def binocular_frame(state: gm.GaussianModelState, cams, bg: torch.Tensor, gaze_u
                     max_instances: int = 1 << 20):
     """A headset's two eye views of ``state``: ``cams`` one camera per eye,
     ``gaze_uvs`` each eye's gaze in [0, 1]^2 (as ``estimate_gaze`` gives
-    them for the pair). The model's activations are computed once and
-    shared; each eye renders ``foveated_view(fused=True)`` with its own
-    camera and gaze. Returns ([color (3, H, W) per eye], [AMR state per
-    eye])."""
-    activations = renderer.activated(state, max_sh_degree)
+    them for the pair). The model's inputs (``renderer.model_inputs``)
+    are taken once and shared: on the card the raw parameters, which each
+    eye's preprocess kernel activates as it reads them; elsewhere one
+    activation. Each eye renders ``foveated_view(fused=True)`` with its
+    own camera and gaze. Returns ([color (3, H, W) per eye], [AMR state
+    per eye])."""
+    with torch.no_grad():
+        inputs = renderer.model_inputs(state, max_sh_degree)
     views = [foveated_view(state, cam, bg, uv, max_sh_degree, radii=radii,
                            decimation=decimation, fused=True, max_instances=max_instances,
-                           activations=activations)
+                           model_inputs=inputs)
              for cam, uv in zip(cams, gaze_uvs)]
     return [c for c, _ in views], [st for _, st in views]
 

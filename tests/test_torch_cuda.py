@@ -28,6 +28,11 @@ max(1, |plain|), on the 300k scene, a capacity-padded state, SH degrees
 0-3, a frame whose sides are not multiples of 32 and edge inputs (the near
 plane, the frame's edges, det = 0); the whole render through K7 bit for
 bit the plain path's; a call that may need a gradient never launches it.
+K7's raw form (the model's raw parameters, activated as K7 loads them)
+bit for bit its activated form and the plain version at 300k and 4M
+slots, SH degrees 0-3; its exp and sigmoid torch's on every float32; the
+served view, a foveated view and a headset frame through it bit for bit
+the activated route's, every row counted as K7's raw rows.
 The binning pipeline (K8) against ``build_sorted_instances_plain`` on the
 card (``chip_smoke.binning_mismatch``): every field bit for bit on the
 listed instances and K2's and K5's outputs through either list equal, on
@@ -41,7 +46,7 @@ import pytest
 import torch
 
 import chip_smoke as cs
-from gaussian_splatting_with_eye_tracking_tpu_torch import fps_test, renderer
+from gaussian_splatting_with_eye_tracking_tpu_torch import fps_test, renderer, tracing
 from gaussian_splatting_with_eye_tracking_tpu_torch.models import gaussian_model as tgm
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import amr, binning, blend, expand, segsum
 from gaussian_splatting_with_eye_tracking_tpu_torch.ops import projection
@@ -1173,6 +1178,112 @@ def test_preprocess_kernel_refuses_what_it_does_not_take(dev):
         with pytest.raises(ValueError):
             preprocess(*g, 3, cam, active_mask=torch.ones(500, dtype=torch.int32, device=dev))
     assert projection.PREPROCESS.launches == before
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape", list(cs.PREP_SHAPES))
+def test_k7_raw_form_is_the_activated_forms(dev, shape, degree):
+    """K7 from the raw parameters (``RawGaussians`` at state SH degree
+    ``degree`` of a degree-3 model) at 300k all-active slots and at
+    4,194,304 slots with 1M active: its record equals K7's from
+    ``renderer.activated``'s tensors and ``preprocess_plain``'s bit for bit
+    in every field (``chip_smoke.raw_mismatch``; a culled slot's rgb is 0
+    by design), from one launch counted as K7's raw rows."""
+    params, active = cs.preprocess_params(*cs.PREP_SHAPES[shape], dev)
+    cam = cs.view_request(6.0, -4.0).params(device=dev)
+    kw = dict(tile=32, active_mask=active)
+    act = tgm.activate(params, degree, 3)
+    before = projection.PREPROCESS.launches
+    tracing._records.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with torch.no_grad():
+            raw = preprocess(tgm.RawGaussians(*params, degree), None, None, None, None, 3, cam,
+                             **kw)
+    assert projection.PREPROCESS.launches == before + 1
+    counts = {c.name: c.value for c in tracing.counters()}
+    tracing._records.clear()
+    assert counts["gs.preprocess.raw"] == counts["gs.preprocess.rows"] == params.xyz.shape[0]
+    with torch.no_grad():
+        got = projection.preprocess_kernel(*act, 3, cam, **kw)
+        want = projection.preprocess_plain(*act, 3, cam, **kw)
+    torch.cuda.synchronize()
+    assert not cs.raw_mismatch(raw, got, want)
+    assert int((want.radii > 0).sum()) > 100_000
+
+
+def test_k7_activation_is_torchs_on_every_float(dev):
+    """exp and sigmoid as K7's raw form applies them (its
+    ``preprocess_activation_launch``) equal ``torch.exp`` and
+    ``torch.sigmoid`` on the card bit for bit on all 2^32 float32 bit
+    patterns (a NaN for a NaN)."""
+    chunk = 1 << 28
+    for lo in range(-(1 << 31), 1 << 31, chunk):
+        x = torch.arange(lo, lo + chunk, dtype=torch.int32, device=dev).view(torch.float32)
+        e, s = torch.empty_like(x), torch.empty_like(x)
+        projection.ACTIVATION(x.data_ptr(), e.data_ptr(), s.data_ptr(), chunk,
+                              torch.cuda.current_stream().cuda_stream)
+        for name, got, want in (("exp", e, torch.exp(x)), ("sigmoid", s, torch.sigmoid(x))):
+            same = (got.view(torch.int32) == want.view(torch.int32)) | (
+                torch.isnan(got) & torch.isnan(want))
+            assert bool(same.all()), (name, x[~same][:8].tolist(), got[~same][:8].tolist(),
+                                      want[~same][:8].tolist())
+
+
+def _raw_route_state(dev):
+    """65,536 of bench.py's gaussians in 262,144 slots, the rest inert and
+    inactive, at SH degree 2 of 3 (the band cut); a 1920x1088 camera."""
+    params, active = cs.preprocess_params(1 << 16, 1 << 18, 4, dev)
+    state = tgm.GaussianModelState(params=params, active=active, sh_degree=2)
+    return state, cs.view_request(6.0, -4.0).params(device=dev)
+
+
+def _raw_route_frame(path, state, cam, dev):
+    """The images of one call of ``path``: the served view, a foveated view
+    or a headset frame (two eyes), as tensors."""
+    from gaussian_splatting_with_eye_tracking_tpu_torch import track_render
+
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+    radii = track_render.ring_radii(cam.width)
+    with torch.no_grad():
+        if path == "served":
+            out = renderer.render(cam, state, bg, max_sh_degree=3, max_instances=cs.MAX_INSTANCES,
+                                  max_live=cs.MAX_LIVE)
+            return [out.color, out.final_t]
+        if path == "foveated":
+            color, st = track_render.foveated_view(state, cam, bg, (0.4, 0.6), 3, radii=radii,
+                                                   max_instances=1 << 21)
+            return [color, st.final_t]
+        cams = [track_render.eye_camera(cam, s * track_render.IPD / 2) for s in (-1, 1)]
+        colors, states = track_render.binocular_frame(
+            state, cams, bg, [(0.42, 0.55), (0.47, 0.55)], 3, radii=radii,
+            max_instances=1 << 21)
+        return colors + [st.final_t for st in states]
+
+
+@pytest.mark.parametrize("path", ["served", "foveated", "headset"])
+def test_raw_route_images_are_the_activated_routes(dev, monkeypatch, path):
+    """The served view, a foveated view and a headset frame through the raw
+    route (``renderer.model_inputs``' ``RawGaussians``, activated inside
+    K7) equal, bit for bit, the same calls with ``renderer.activated``'s
+    tensors in its place; every preprocess call counts all its rows as
+    K7's raw rows (``gs.preprocess.raw`` = ``gs.preprocess.rows``)."""
+    state, cam = _raw_route_state(dev)
+    _raw_route_frame(path, state, cam, dev)  # builds the kernels
+    torch.cuda.synchronize()
+    tracing._records.clear()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = _raw_route_frame(path, state, cam, dev)
+        torch.cuda.synchronize()
+    counts = tracing.counters()
+    tracing._records.clear()
+    rows = [c.value for c in counts if c.name == "gs.preprocess.rows"]
+    assert len(rows) == (2 if path == "headset" else 1)
+    assert [c.value for c in counts if c.name == "gs.preprocess.raw"] == rows
+    monkeypatch.setattr(renderer, "model_inputs", lambda st, deg: renderer.activated(st, deg))
+    want = _raw_route_frame(path, state, cam, dev)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert float(got[0].max()) > 0
 
 
 def _k8_case(case, dev):
